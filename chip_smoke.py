@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Phase 0  prints the card's name and power limit, builds the flash forward
-         kernel (K1) from metaflow_tpu_torch/ops/csrc and turns TF32 off.
+Phase 0  prints the card's name and power limit, builds the flash kernels
+         (K1 forward, K2/K3 backward) from metaflow_tpu_torch/ops/csrc with
+         one nvcc per source started together, and turns TF32 off.
 Phase 1  holds K1 against its plain PyTorch version at four shapes, the
-         main-path shape last, and times K1, the plain version and
+         inference shape last, and times K1, the plain version and
          PyTorch's scaled_dot_product_attention (a yardstick only: the port
-         never calls it) at the main-path shape.
+         never calls it) at the inference shape.
 Phase 2  runs the Llama-3-8B forward at full width and depth in bf16 with
          random weights on tokens [2, 2048]: attention_impl="auto" must
          launch K1 once per layer, and its logits must agree with the
@@ -17,6 +18,15 @@ Phase 3  serves requests through SlotEngine: (a) a 2-layer full-width
          float32 model must give the tokens generate() gives, request for
          request; (b) the full bf16 model serves 8 mixed requests to
          completion with no slot leaked.
+Phase 4  holds K2 (dq) and K3 (dk, dv) against their plain version at four
+         shapes, the training shape last, and times K1, K2, K3, their plain
+         versions and SDPA's forward and backward at the training shape.
+Phase 5  trains bench_1b: (a) a 2-layer full-width float32 model's loss
+         gradients through K1/K2/K3 must equal the plain-attention ones;
+         (b) the full bf16 model takes 5 AdamW steps on tokens [8, 2049],
+         each launching K1 32 times and K2, K3 16 times, every K2/K3 launch
+         of step 2 held against its plain version, the loss falling from
+         step 1 to step 4; prints step ms, tokens/s, MFU and peak memory.
 
 Every run drives every phase, and every phase asserts; the script exits
 non-zero on the first failure, when no CUDA device is present, or when the
@@ -24,9 +34,12 @@ port's package is missing. Its last lines are the kernel report and
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
+import gc
 import importlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -66,14 +79,30 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(B, S, H, KV, D, dtype_bytes, causal, tensor_cores):
-    """The least time the card could take for the flash forward: the larger
-    of its two products' operations over the peak rate and its bytes (q, k,
-    v read once, o and lse written once) over the memory rate."""
+def attention_work(kernel, B, S, H, KV, D, dtype_bytes, causal):
+    """(operations, bytes) the least a flash kernel must do on [B, S, H, D]
+    queries and [B, S, KV, D] keys and values: K1 ('flash_fwd') does two
+    products (4*D flop per live (q, k) pair), K2 ('flash_bwd_dq') three
+    and K3 ('flash_bwd_dkv') four. Bytes count each input read once (q, k,
+    v; the backward also dO, lse, delta) and each output written once (K1:
+    O and lse; K2: f32 dq; K3: f32 dk and dv)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4.0 * B * H * D * pairs
-    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * dtype_bytes \
-        + 4 * B * H * S
+    q_bytes = B * S * H * D * dtype_bytes
+    qkv = q_bytes + 2 * B * S * KV * D * dtype_bytes
+    stats = 4 * B * H * S
+    if kernel == "flash_fwd":
+        return 4.0 * B * H * D * pairs, qkv + q_bytes + stats
+    grad_inputs = qkv + q_bytes + 2 * stats
+    if kernel == "flash_bwd_dq":
+        return 6.0 * B * H * D * pairs, grad_inputs + 4 * B * S * H * D
+    return 8.0 * B * H * D * pairs, grad_inputs + 8 * B * S * KV * D
+
+
+def bound_ms(work, tensor_cores):
+    """The least time the card could take for (operations, bytes): the
+    larger of the operations over the peak rate and the bytes over the
+    memory rate, and which of the two it is."""
+    flops, nbytes = work
     t_ops = flops / (H100_BF16_FLOPS if tensor_cores else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -138,8 +167,9 @@ def phase1_kernel_vs_plain(A, torch):
             row["library_ms"] = cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q_t, k_rep, v_rep, is_causal=causal), 20)
-            row["bound_ms"], row["bound_by"] = flash_bound_ms(
-                B, S, H, KV, D, 2, causal, tensor_cores=True)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                attention_work("flash_fwd", B, S, H, KV, D, 2, causal),
+                tensor_cores=True)
             record = row
             del k_rep, v_rep, q_t
         log(json.dumps(row))
@@ -350,6 +380,292 @@ def phase3_serve(torch, llama, decode, engine_mod, params_8b):
     log(json.dumps(result))
 
 
+TRAIN_SHAPE = (8, 2048, 16, 8, 128)  # bench_1b at tokens [8, 2048]
+
+
+def _bwd_inputs(torch, gen, B, S, H, KV, D, dt):
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
+    g = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+    return q, k, v, g
+
+
+def _delta(g, out):
+    B, S, H, _ = g.shape
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        B * H, S).contiguous()
+
+
+def _f32_excess(got, want):
+    """The largest |got - want| over atol 1e-5 + rtol 1e-3 |want| (the JAX
+    package's grad tolerance): at most 1 when they agree."""
+    return ((got - want).abs() / (1e-5 + 1e-3 * want.abs())).max().item()
+
+
+def phase4_backward(A, torch):
+    """K2 and K3 against their plain version at four shapes, the training
+    shape last; at the training shape K1 too, and the times of K1, K2, K3,
+    the plain versions and SDPA. Returns {kernel name: record}."""
+    import torch.nn.functional as F
+
+    shapes = [  # (B, S, H, KV, D, dtype, causal)
+        (1, 128, 4, 4, 64, torch.float32, True),
+        (2, 256, 8, 2, 128, torch.bfloat16, True),
+        (1, 512, 4, 4, 128, torch.bfloat16, False),
+        TRAIN_SHAPE + (torch.bfloat16, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    records = {}
+    for B, S, H, KV, D, dt, causal in shapes:
+        q, k, v, g = _bwd_inputs(torch, gen, B, S, H, KV, D, dt)
+        scale = D ** -0.5
+        out, lse = A._flash_forward_cuda(q, k, v, causal, scale)
+        delta = _delta(g, out)
+        got = (A._flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal),
+               *A._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal))
+        want = A._flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        row = {"phase": 4, "shape": [B, S, H, KV, D],
+               "dtype": str(dt).split(".")[-1], "causal": causal}
+        ok = all(bool(torch.isfinite(t).all()) for t in got)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            row["max_abs_err_" + name] = (a - b).abs().max().item()
+            if dt == torch.float32:
+                # f32 on both sides: the sums differ only in order
+                row["f32_excess_" + name] = _f32_excess(a, b)
+                ok = ok and row["f32_excess_" + name] <= 1.0
+            else:
+                row["row_err_" + name] = A.flash_out_error(a, b)
+                ok = ok and row["row_err_" + name] <= A.FLASH_BWD_ROW_LIMIT
+        row["row_limit"] = (None if dt == torch.float32
+                            else A.FLASH_BWD_ROW_LIMIT)
+        if not ok:
+            log(json.dumps(row))
+            raise AssertionError("K2/K3 disagree with their plain version: "
+                                 "%s" % json.dumps(row))
+        if (B, S, H, KV, D) == TRAIN_SHAPE:
+            records = _time_training_shape(A, torch, F, q, k, v, g, out, lse,
+                                           delta, row)
+        log(json.dumps(row))
+    return records
+
+
+def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
+    """K1 held against its plain version at the training shape, then every
+    time of the kernel report: each kernel, the plain versions, SDPA."""
+    B, S, H, KV, D = TRAIN_SHAPE
+    scale = D ** -0.5
+    ref_out, _ = A._flash_forward_plain(q, k, v, True, scale)
+    row["row_err_o"] = A.flash_out_error(out, ref_out)
+    if row["row_err_o"] > A.FLASH_BF16_ROW_LIMIT:
+        raise AssertionError("K1 off its plain version at the training "
+                             "shape: %s" % row["row_err_o"])
+    fwd_err = (out.float() - ref_out.float()).abs().max().item()
+    del ref_out
+    ms = {
+        "flash_fwd": cuda_ms(
+            lambda: A._flash_forward_cuda(q, k, v, True, scale), 20),
+        "flash_bwd_dq": cuda_ms(lambda: A._flash_bwd_dq_cuda(
+            q, k, v, g, lse, delta, scale, True), 20),
+        "flash_bwd_dkv": cuda_ms(lambda: A._flash_bwd_dkv_cuda(
+            q, k, v, g, lse, delta, scale, True), 20),
+    }
+    plain_fwd = cuda_ms(lambda: A._flash_forward_plain(q, k, v, True, scale),
+                        3)
+    plain_bwd = cuda_ms(lambda: A._flash_block_bwd_plain(
+        q, k, v, g, lse, delta, scale, True), 3)
+    # SDPA on [B, H, S, D] with the kv heads repeated; its backward is
+    # timed as forward + backward minus forward
+    q_t, g_t = (t.transpose(1, 2).contiguous() for t in (q, g))
+    k_t, v_t = (A._broadcast_gqa(t, H).transpose(1, 2).contiguous()
+                for t in (k, v))
+    leaves = [t.requires_grad_(True) for t in (q_t, k_t, v_t)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, g_t)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    sdpa_fwd_ms = cuda_ms(sdpa_fwd, 20)
+    sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+    records = {}
+    for name in ms:
+        work = attention_work(name, B, S, H, KV, D, 2, True)
+        bound, by = bound_ms(work, tensor_cores=True)
+        records[name] = {
+            "ms": ms[name], "bound_ms": bound, "bound_by": by,
+            "gflop": work[0] / 1e9, "gbytes": work[1] / 1e9,
+            "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
+            "library_ms": sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms,
+            "max_abs_err": {
+                "flash_fwd": fwd_err,
+                "flash_bwd_dq": row["max_abs_err_dq"],
+                "flash_bwd_dkv": max(row["max_abs_err_dk"],
+                                     row["max_abs_err_dv"])}[name]}
+        log("phase 4: %s at the training shape: %.4f ms, bound %.4f ms "
+            "(%s; %.1f GFLOP, %.3f GB)" % (name, ms[name], bound, by,
+                                          work[0] / 1e9, work[1] / 1e9))
+    row.update(plain_bwd_ms=plain_bwd, sdpa_fwd_ms=sdpa_fwd_ms,
+               sdpa_bwd_ms=sdpa_bwd_ms,
+               ms={n: r["ms"] for n, r in records.items()})
+    return records
+
+
+def _leaf_params(torch, params):
+    """A copy of a parameter tree whose tensors are leaves requiring
+    grad."""
+    return {k: _leaf_params(torch, v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_(True)
+            for k, v in params.items()}
+
+
+def phase5a_exact_grads(torch, llama, A, leaves):
+    """A 2-layer full-width bench_1b in float32: the loss gradients through
+    K1/K2/K3 against the ones through plain attention."""
+    cfg = llama.LlamaConfig.bench_1b(n_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = llama.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1025), generator=gen,
+                           device="cuda")
+    grads, losses, launches = {}, {}, {}
+    for impl in ("auto", "xla"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        p = _leaf_params(torch, params)
+        A.reset_launch_counts()
+        loss = llama.loss_fn(p, {"tokens": tokens}, c)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[impl] = dict(A.LAUNCHES)
+        losses[impl] = loss.item()
+        grads[impl] = {"/".join(path): t.grad for path, t in leaves(p)}
+    excess = {name: _f32_excess(grads["auto"][name], grads["xla"][name])
+              for name in grads["auto"]}
+    result = {"phase": "5a", "layers": cfg.n_layers, "tokens": [2, 1025],
+              "loss_auto": losses["auto"], "loss_plain": losses["xla"],
+              "launches_auto": launches["auto"],
+              "launches_plain": launches["xla"],
+              "grad_excess_max": max(excess.values()),
+              "grad_excess_by_leaf": excess}
+    log(json.dumps(result))
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    if launches["auto"] != want or any(launches["xla"].values()):
+        raise AssertionError("phase 5a launches %s, expected %s"
+                             % (launches, want))
+    if max(excess.values()) > 1.0:
+        raise AssertionError("f32 gradients through the kernels disagree "
+                             "with plain attention: %s" % excess)
+
+
+def checked_backward(A, run):
+    """run() with every K2 and K3 launch held against the plain version on
+    the same inputs; returns (run's result, {kernel: each launch's row
+    error over FLASH_BWD_ROW_LIMIT})."""
+    ratios = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    dq_launch, dkv_launch = A._flash_bwd_dq_cuda, A._flash_bwd_dkv_cuda
+
+    def dq_checked(q, k, v, g, lse, delta, scale, causal):
+        dq = dq_launch(q, k, v, g, lse, delta, scale, causal)
+        ref = A._flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal)
+        ratios["flash_bwd_dq"].append(
+            A.flash_out_error(dq, ref[0]) / A.FLASH_BWD_ROW_LIMIT)
+        return dq
+
+    def dkv_checked(q, k, v, g, lse, delta, scale, causal):
+        dk, dv = dkv_launch(q, k, v, g, lse, delta, scale, causal)
+        _, rk, rv = A._flash_block_bwd_plain(q, k, v, g, lse, delta, scale,
+                                             causal)
+        ratios["flash_bwd_dkv"].append(max(
+            A.flash_out_error(dk, rk), A.flash_out_error(dv, rv))
+            / A.FLASH_BWD_ROW_LIMIT)
+        return dk, dv
+
+    A._flash_bwd_dq_cuda, A._flash_bwd_dkv_cuda = dq_checked, dkv_checked
+    try:
+        result = run()
+    finally:
+        A._flash_bwd_dq_cuda, A._flash_bwd_dkv_cuda = dq_launch, dkv_launch
+    return result, ratios
+
+
+def phase5b_train(torch, llama, A, training):
+    """bench_1b in bf16 at full width and depth: 5 trainer steps on one
+    fixed batch of tokens [8, 2049]. Returns the launches of the run."""
+    cfg = llama.LlamaConfig.bench_1b()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, 2049),
+                                     generator=gen, device="cuda")}
+    state, step = training.make_trainer(
+        cfg, llama, optimizer=training.default_optimizer(
+            warmup_steps=1, total_steps=10), params=params)
+    torch.cuda.synchronize()
+    log("phase 5b: bench_1b bf16 params %.3fB, depth %d of %d, init %.1fs"
+        % (n_params / 1e9, cfg.n_layers, cfg.n_layers,
+           time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    steps, ratios = [], None
+    A.reset_launch_counts()
+    for i in range(5):
+        before = dict(A.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 2:
+            (state, m), ratios = checked_backward(
+                A, lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        steps.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
+                      "loss": loss, "grad_norm": norm,
+                      "launches": {n: A.LAUNCHES[n] - before[n]
+                                   for n in A.LAUNCHES}})
+    launches = dict(A.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(s["ms"] for s in steps if s["step"] != 2
+                                and s["step"] > 0)
+    tokens = 8 * 2048
+    tokens_per_s = tokens / step_ms * 1e3
+    fpt = training.flops_per_token_dense(n_params, cfg.n_layers, cfg.dim,
+                                         2048)
+    peak = training.peak_tflops(torch.cuda.get_device_name(0))
+    if peak is None:
+        raise AssertionError("no peak rate for %s"
+                             % torch.cuda.get_device_name(0))
+    result = {"phase": "5b", "steps": steps, "step_ms": step_ms,
+              "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+              "peak_tflops": peak, "mfu": tokens_per_s * fpt / (peak * 1e12),
+              "peak_mem_gb": peak_gb, "launches": launches,
+              "in_model_row_err_over_limit": {
+                  n: max(r) for n, r in ratios.items()},
+              "in_model_checks": {n: len(r) for n, r in ratios.items()}}
+    log(json.dumps(result))
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    for s_ in steps:
+        if s_["launches"] != want:
+            raise AssertionError("step %d launched %s, expected %s"
+                                 % (s_["step"], s_["launches"], want))
+    if any(len(r) != cfg.n_layers or max(r) > 1.0 for r in ratios.values()):
+        raise AssertionError("K2/K3 off their plain version inside the "
+                             "model: %s" % ratios)
+    losses = [s_["loss"] for s_ in steps]
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        raise AssertionError("non-finite losses %s" % losses)
+    if abs(losses[0] - losses[1]) > 1e-5 * abs(losses[0]) or \
+            not losses[4] < losses[1]:
+        raise AssertionError("the loss must hold at step 1 (lr 0 on the "
+                             "first update) and fall to step 4: %s" % losses)
+    return launches
+
+
 def main():
     import torch
 
@@ -361,26 +677,34 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from metaflow_tpu_torch import training
     from metaflow_tpu_torch.inference import decode
     from metaflow_tpu_torch.models import llama
     from metaflow_tpu_torch.ops import KERNELS, _build
     from metaflow_tpu_torch.serving import engine as engine_mod
+    from metaflow_tpu_torch.training.train_step import leaves
 
     A = importlib.import_module("metaflow_tpu_torch.ops.attention")
     start = time.perf_counter()
 
-    # phase 0: the card, the build, the numerics settings
+    # phase 0: the card, the builds, the numerics settings
     card = card_line()
     log("card: %s" % card)
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
-    info = _build.build_info("flash_fwd")
-    log("K1 build: %s in %.1fs (%s)" % (
-        "built" if info["built"] else "loaded", info["seconds"],
-        os.path.relpath(info["path"], HERE)))
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    sources = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS
+                      if k.get("source")})
+    t = time.perf_counter()
+    _build.build_all(sources)  # one nvcc per source, started together
+    log("kernel builds: %.1fs for %s" % (time.perf_counter() - t, sources))
+    for name in sources:
+        info = _build.build_info(name)
+        log("%s: %s in %.1fs (%s)" % (
+            name, "built" if info["built"] else "loaded", info["seconds"],
+            os.path.relpath(info["path"], HERE)))
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas: " + line.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("allow_tf32: matmul=%s cudnn=%s" % (
@@ -388,29 +712,53 @@ def main():
         torch.backends.cudnn.allow_tf32))
     log("phase 0 done at %.1fs" % (time.perf_counter() - start))
 
-    record = phase1_kernel_vs_plain(A, torch)
+    inference = phase1_kernel_vs_plain(A, torch)
     log("phase 1 done at %.1fs" % (time.perf_counter() - start))
-    params, launches = phase2_forward(torch, llama, A)
+    params, fwd_launches = phase2_forward(torch, llama, A)
     log("phase 2 done at %.1fs" % (time.perf_counter() - start))
     phase3_serve(torch, llama, decode, engine_mod, params)
     log("phase 3 done at %.1fs" % (time.perf_counter() - start))
+    del params  # the 8B weights: phases 4 and 5 need the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = phase4_backward(A, torch)
+    log("phase 4 done at %.1fs" % (time.perf_counter() - start))
+    phase5a_exact_grads(torch, llama, A, leaves)
+    log("phase 5a done at %.1fs" % (time.perf_counter() - start))
+    train_launches = phase5b_train(torch, llama, A, training)
+    log("phase 5b done at %.1fs" % (time.perf_counter() - start))
 
+    # one line per kernel: its launches in the training run (phase 5b),
+    # its times at the training shape (phase 4); K1 also at the inference
+    # shape (phase 1) with its launches in the forward (phase 2)
     ported, not_yet = [], []
     for k in KERNELS:
         if k.get("source") is None:
             not_yet.append({"name": k["name"], "replaces": k["replaces"],
                             "status": "not yet ported"})
             continue
-        # flash_fwd is this slice's one ported kernel; phases 1 and 2
-        # measure it
-        ported.append({
-            "name": k["name"], "route": k["route"], "source": k["source"],
-            "replaces": k["replaces"], "status": "ported",
-            "launches": launches[k["name"]],
-            "max_abs_err": record["max_abs_err_o"], "ms": record["ms"],
-            "plain_ms": record["plain_ms"], "bound_ms": record["bound_ms"],
-            "bound_by": record["bound_by"],
-            "library_ms": record["library_ms"]})
+        rec = records[k["name"]]
+        line = {"name": k["name"], "route": k["route"],
+                "source": k["source"], "replaces": k["replaces"],
+                "status": "ported", "launches": train_launches[k["name"]],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"],
+                "shape": "B, S, H, KV, D = %s bf16 causal" % (TRAIN_SHAPE,)}
+        if k["name"] == "flash_fwd":
+            line["inference_shape"] = {
+                "shape": "B, S, H, KV, D = (2, 2048, 32, 8, 128) bf16 "
+                         "causal",
+                "launches_llama3_8b_forward": fwd_launches["flash_fwd"],
+                "max_abs_err": inference["max_abs_err_o"],
+                "ms": inference["ms"], "plain_ms": inference["plain_ms"],
+                "bound_ms": inference["bound_ms"],
+                "library_ms": inference["library_ms"]}
+        else:
+            line["library"] = "SDPA backward: dq, dk, dv together"
+            line["plain"] = "the plain backward: dq, dk, dv together"
+        ported.append(line)
     log(card_line())
     log(json.dumps({"kernels": ported, "not_yet_ported": not_yet}))
     log(json.dumps({"ok": True, "device": {

@@ -5,6 +5,6 @@ which stays the reference. Entry points run on the CUDA device unless the
 caller passes device="cpu"; without a card they raise.
 """
 
-from . import inference, models, ops, serving
+from . import inference, models, ops, serving, training
 
-__all__ = ["inference", "models", "ops", "serving"]
+__all__ = ["inference", "models", "ops", "serving", "training"]

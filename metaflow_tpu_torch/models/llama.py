@@ -1,9 +1,10 @@
-"""Llama-family transformer (inference forward) in PyTorch.
+"""Llama-family transformer in PyTorch: forward, loss and remat.
 
 Parameters are a plain dict of tensors with the JAX package's names and
 layout: per-layer weights stacked on a leading [L] axis, projections stored
 [in, out] and applied as `h @ w`. The layer stack is a Python loop over
-that axis. Training (loss_fn, remat) comes with a later slice.
+that axis; with cfg.remat each layer runs under torch.utils.checkpoint, as
+the JAX package wraps its scanned layer in jax.checkpoint.
 """
 
 from dataclasses import dataclass, replace
@@ -11,6 +12,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.norms import rms_norm
@@ -31,6 +33,14 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
     attention_impl: str = "auto"
+    remat: bool = True
+    # None recomputes the whole layer in the backward pass; the JAX
+    # package's "dots" and "attn_out" policies are not ported yet
+    remat_policy: str = None
+    # cross-entropy chunk length (tokens): the [B, chunk, vocab] f32 logits
+    # are computed, and recomputed in the backward pass, one chunk at a
+    # time. 0 = unchunked.
+    loss_chunk: int = 256
 
     @property
     def head_dim(self):
@@ -89,14 +99,34 @@ def check_params_device(params, device):
                          % (where, device))
 
 
+class _MatmulBF16F32(torch.autograd.Function):
+    """bf16 a [N, K] @ bf16 b [K, M] with float32 products, sums and result
+    on the card (torch.mm with out_dtype, which autograd cannot
+    differentiate). The gradients are the JAX package's transpose of its
+    bf16 x bf16 -> f32 einsum as XLA on a TPU computes it at default
+    precision: the f32 cotangent enters the products rounded to bf16, the
+    sums are f32, and each gradient is cast to bf16."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        return g @ b.t(), a.t() @ g
+
+
 def _matmul_f32(a, b):
     """a @ b with float32 products and sums and a float32 result (the JAX
     package's preferred_element_type=float32 on bf16 operands). On the card
     a bf16 product writes float32 directly; elsewhere the operands are cast
     up first."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b,
-                       out_dtype=torch.float32)
+        out = _MatmulBF16F32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 
@@ -197,11 +227,25 @@ def _tokens_on(tokens, device):
     return torch.as_tensor(tokens, device=device).long()
 
 
+def _remat(fn, *args):
+    """fn(*args), recomputed in the backward pass instead of keeping its
+    intermediates when autograd records (jax.checkpoint with policy None);
+    a plain call when it does not."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def hidden_states(params, tokens, cfg, device="cuda"):
     """tokens: [B, S] int → final-norm hidden states [B, S, D] (model
-    dtype)."""
+    dtype). With cfg.remat each layer's intermediates are recomputed in the
+    backward pass."""
     device = resolve_device(device)
     check_params_device(params, device)
+    if cfg.remat and cfg.remat_policy is not None:
+        raise NotImplementedError(
+            "remat_policy=%r is not ported yet (ROADMAP.md, slice 2b); use "
+            "remat_policy=None" % cfg.remat_policy)
     tokens = _tokens_on(tokens, device)
     dt = param_dtype(cfg)
     x = params["embed"][tokens].to(dt)
@@ -209,7 +253,11 @@ def hidden_states(params, tokens, cfg, device="cuda"):
         cfg.head_dim, tokens.shape[1], cfg.rope_theta, dtype=dt,
         llama3_scaling=cfg.rope_llama3_scaling, device=device)
     for i in range(cfg.n_layers):
-        x = _layer(cfg, cos, sin, x, layer_params(params, i))
+        lp = layer_params(params, i)
+        if cfg.remat:
+            x = _remat(_layer, cfg, cos, sin, x, lp)
+        else:
+            x = _layer(cfg, cos, sin, x, lp)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -217,3 +265,60 @@ def forward(params, tokens, cfg, device="cuda"):
     """tokens: [B, S] int → logits [B, S, vocab] (float32)."""
     x = hidden_states(params, tokens, cfg, device=device)
     return _matmul_f32(x, params["lm_head"])
+
+
+def _ce_sums(x, lm_head, targets, mask):
+    """Summed cross-entropy and token count for one [B, C, D] hidden chunk.
+    The f32 logits live only inside this function."""
+    logits = _matmul_f32(x, lm_head)
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, targets[..., None])[..., 0]
+    nll = lse - tl
+    if mask is None:
+        return nll.sum(), torch.tensor(float(nll.numel()), device=x.device)
+    mask = mask.float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def loss_fn(params, batch, cfg, device="cuda"):
+    """Next-token cross-entropy; batch: {'tokens': [B, S+1]} or
+    {'inputs': [B, S], 'targets': [B, S]} (+ optional 'mask'), numpy arrays
+    or tensors.
+
+    When cfg.loss_chunk divides the sequence, the head product and
+    log-softmax run chunk by chunk along the sequence, each chunk
+    recomputed in the backward pass, so peak activation memory is
+    [B, chunk, vocab] f32 instead of [B, S, vocab] in both passes. An
+    off-size sequence snaps the chunk to the largest divisor of S that fits
+    the bound (below 32, unchunked), as the JAX package does."""
+    device = resolve_device(device)
+    if "tokens" in batch:
+        tokens = _tokens_on(batch["tokens"], device)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs = _tokens_on(batch["inputs"], device)
+        targets = _tokens_on(batch["targets"], device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device)
+    x = hidden_states(params, inputs, cfg, device=device)
+
+    S = x.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk and S % chunk:
+        chunk = next(c for c in range(min(chunk, S), 0, -1) if S % c == 0)
+        if chunk < 32:
+            chunk = 0  # degenerate chunking would be slower than the win
+    if not chunk or S == chunk:
+        loss_sum, count = _ce_sums(x, params["lm_head"], targets, mask)
+        return loss_sum / torch.clamp(count, min=1)
+
+    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    count = torch.zeros((), dtype=torch.float32, device=device)
+    for start in range(0, S, chunk):
+        sl = slice(start, start + chunk)
+        s, c = _remat(_ce_sums, x[:, sl], params["lm_head"], targets[:, sl],
+                      None if mask is None else mask[:, sl])
+        loss_sum = loss_sum + s
+        count = count + c
+    return loss_sum / torch.clamp(count, min=1)

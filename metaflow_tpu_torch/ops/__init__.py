@@ -1,6 +1,7 @@
 from .norms import rms_norm, layer_norm
 from .rope import rope_frequencies, apply_rope
-from .attention import attention, flash_attention, reference_attention
+from .attention import (attention, flash_attention, flash_block_bwd,
+                        reference_attention)
 
 __all__ = [
     "rms_norm",
@@ -9,6 +10,7 @@ __all__ = [
     "apply_rope",
     "attention",
     "flash_attention",
+    "flash_block_bwd",
     "reference_attention",
 ]
 
@@ -19,9 +21,11 @@ __all__ = [
 KERNELS = [
     {"name": "flash_fwd", "replaces": "metaflow_tpu/ops/attention.py:123",
      "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_fwd.cu"},
-    {"name": "flash_bwd_dq", "replaces": "metaflow_tpu/ops/attention.py:208"},
+    {"name": "flash_bwd_dq", "replaces": "metaflow_tpu/ops/attention.py:208",
+     "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_bwd.cu"},
     {"name": "flash_bwd_dkv",
-     "replaces": "metaflow_tpu/ops/attention.py:247"},
+     "replaces": "metaflow_tpu/ops/attention.py:247",
+     "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_bwd.cu"},
     {"name": "flash_block_fwd",
      "replaces": "metaflow_tpu/ops/attention.py:395"},
     {"name": "gmm_fwd", "replaces": "metaflow_tpu/ops/gmm.py:149"},

@@ -3,8 +3,9 @@
 Each source has a plain C entry point and is bound with ctypes, so the build
 is one nvcc call (seconds) and includes no PyTorch header. The library is
 built at first use into metaflow_tpu_torch/_build/, under a name keyed by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once."""
+hash of the source, the shared headers and the flags, so an edited source
+rebuilds and an unchanged one loads at once. `build_all` starts one nvcc
+per source at once."""
 
 import ctypes
 import hashlib
@@ -20,6 +21,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED = {}  # name -> (ctypes.CDLL, build info)
+_BUILT = {}  # name -> what this process's nvcc run of it took and said
 
 
 def _nvcc():
@@ -34,10 +36,41 @@ def _nvcc():
 
 
 def library_path(name):
+    """The source of `name` and its library's path, keyed by a hash of the
+    source, the shared headers of csrc/ and the flags."""
     src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
+
+
+def build_all(names):
+    """Build the libraries of `names` that are not built yet, one nvcc per
+    source, all started at once. Raises if any nvcc fails."""
+    jobs = []
+    for name in names:
+        src, out = library_path(name)
+        if name in _LOADED or out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, src, out, tmp, proc, start in jobs:
+        log = proc.communicate()[0]
+        _BUILT[name] = {"built": True, "log": log,
+                        "seconds": time.perf_counter() - start}
+        if proc.returncode != 0:
+            failed.append("nvcc failed on %s:\n%s" % (src.name, log))
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name):
@@ -46,20 +79,10 @@ def load(name):
     if name in _LOADED:
         return _LOADED[name][0]
     src, out = library_path(name)
-    info = {"path": str(out), "built": False, "seconds": 0.0, "log": ""}
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
-        start = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        info.update(built=True, seconds=time.perf_counter() - start,
-                    log=proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed on %s:\n%s" % (src.name,
-                                                           info["log"]))
-        os.replace(tmp, out)
+        build_all([name])
+    info = {"path": str(out), "built": False, "seconds": 0.0, "log": ""}
+    info.update(_BUILT.get(name, {}))
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = (lib, info)
     return lib

@@ -1,15 +1,14 @@
-"""Attention: the plain PyTorch path and the flash forward kernel (K1).
+"""Attention: the plain PyTorch path and the flash kernels K1, K2, K3.
 
 `attention(q, k, v, causal=..., impl='auto')` takes [B, S, H, D] queries
-and [B, S, KV, D] keys/values (KV may divide H). The flash forward is the
-hand-written Hopper kernel of csrc/flash_fwd.cu, which replaces the TPU
-kernel `_flash_fwd_kernel` of the JAX package. Its plain PyTorch version
-sits beside it: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises.
-
-Forward only: the flash backward kernels (K2/K3) come with training, so the
-flash path refuses inputs that require grad instead of differentiating the
-plain version.
+and [B, S, KV, D] keys/values (KV may divide H). The flash path is a
+torch.autograd.Function (the JAX package's custom_vjp): its forward is the
+hand-written Hopper kernel K1 of csrc/flash_fwd.cu (replacing the TPU kernel
+`_flash_fwd_kernel`), its backward the kernels K2 (dq) and K3 (dk, dv) of
+csrc/flash_bwd.cu (replacing `_flash_bwd_dq_kernel` and
+`_flash_bwd_dkv_kernel`), which recompute the probabilities from the saved
+lse. Each kernel's plain PyTorch version sits beside it: a CPU tensor takes
+the plain version, a CUDA tensor launches the kernel or raises.
 """
 
 import ctypes
@@ -27,7 +26,7 @@ FLASH_HEAD_DIMS = (64, 128)
 
 # kernel launches since the last reset; a run reads them to show which
 # kernels its path went through
-LAUNCHES = {"flash_fwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def reset_launch_counts():
@@ -108,11 +107,16 @@ def flash_out_error(out, ref):
     return (diff / unit).max().item()
 
 
-def _flash_forward_cuda(q, k, v, causal, scale):
-    """Launch K1 on the card. Same contract as _flash_forward_plain."""
+def _check_kernel_inputs(q, k, v, g=None):
+    """Raise on what the flash kernels do not take: q (and g, the output
+    gradient) [B, S, H, D] and k, v [B, S, KV, D] CUDA tensors of one dtype
+    (bf16 or f32) and device, head dim 64 or 128, last dim contiguous, bf16
+    rows 16-byte aligned."""
     B, S, H, D = q.shape
     KV = k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    named = [("q", q), ("k", k), ("v", v)] + ([("g", g)] if g is not None
+                                              else [])
+    for name, t in named:
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError("flash kernel: %s must be a CUDA tensor on %s, "
                              "got %s" % (name, q.device, t.device))
@@ -128,15 +132,32 @@ def _flash_forward_cuda(q, k, v, causal, scale):
         raise ValueError("flash kernel supports head dims %s, got %d"
                          % (FLASH_HEAD_DIMS, D))
     if (k.shape != (B, S, KV, D) or v.shape != k.shape or H % KV
-            or B * H > 65535):
+            or B * H > 65535 or (g is not None and g.shape != q.shape)):
         raise ValueError("flash kernel: bad shapes q %s k %s v %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     if q.dtype == torch.bfloat16:
         # 16-byte async copies: every row must start 16-byte aligned
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+        for name, t in named:
+            if not _rows_aligned(t):
                 raise ValueError("flash kernel: %s rows are not 16-byte "
                                  "aligned" % name)
+
+
+def _rows_aligned(t):
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in t.stride()[:3])
+
+
+def _device_index(t):
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
+
+
+def _flash_forward_cuda(q, k, v, causal, scale):
+    """Launch K1 on the card. Same contract as _flash_forward_plain."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    _check_kernel_inputs(q, k, v)
     lib = _build.load("flash_fwd")
     fn = lib.flash_fwd
     fn.restype = ctypes.c_int
@@ -152,8 +173,7 @@ def _flash_forward_cuda(q, k, v, causal, scale):
              1 if q.dtype == torch.bfloat16 else 0,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], float(scale), int(bool(causal)),
-             q.device.index if q.device.index is not None
-             else torch.cuda.current_device(), stream)
+             _device_index(q), stream)
     if err != 0:
         raise RuntimeError("flash_fwd kernel launch failed: CUDA error %d"
                            % err)
@@ -170,10 +190,160 @@ def _flash_forward(q, k, v, causal, scale):
     return _flash_forward_cuda(q, k, v, causal, scale)
 
 
+# ---------------------------------------------------------------------------
+# K2, K3: flash backward
+# ---------------------------------------------------------------------------
+
+
+def _flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal):
+    """The plain version of K2 and K3: the same function in one pass over
+    the whole key range, with the kernels' rounding points. f32 scores
+    scaled after the product, P = exp(s - lse), dP = dO V^T in f32,
+    dS = P (dP - delta) scale rounded to the input dtype before dS K and
+    dS^T q, P rounded to the input dtype before P^T dO, sums in f32, the
+    GQA group summed in f32. Returns f32 (dq [B, S, H, D], dk and dv
+    [B, S, KV, D])."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    kr = _broadcast_gqa(k, H).float()
+    vr = _broadcast_gqa(v, H).float()
+    qf, gf = q.float(), g.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vr)
+    ds = (p * (dp - delta.reshape(B, H, S, 1)) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), gf)
+    group = (B, S, KV, H // KV, D)
+    return dq, dk.reshape(group).sum(3), dv.reshape(group).sum(3)
+
+
+# How far K2's dq and K3's dk, dv (f32, as flash_block_bwd returns them)
+# may stray from their plain version, in flash_out_error's unit, 2^-8 of
+# the row's largest element. Both round dS and P to bf16 at the same
+# points, so they differ by the f32 sums' order and exp2 against exp, and
+# by the bf16 roundings of dS and P that those flip: one flip moves a row
+# by half to one ulp of a term, which is most of the row in the early
+# causal rows that sum a few keys. On an H100 the sound kernels read at
+# most 1.98 (chip_smoke.py's phase-4 shapes; 0.02 inside the bench_1b
+# training step); faults planted by ops/fault_check.py read 7.9 (P at 4
+# mantissa bits in K3) to 8e8 (K2's causal mask dropped).
+FLASH_BWD_ROW_LIMIT = 4.0
+
+
+def _kernel_layout(t):
+    """t itself when the flash kernels can read it in place (last dim
+    contiguous, rows 16-byte aligned), else a contiguous copy. The output
+    gradient reaching the backward may be any view (an expanded or sliced
+    one), and the kernels read only such rows."""
+    if t.stride(-1) == 1 and _rows_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _launch_bwd(name, q, k, v, g, lse, delta, scale, causal, outs):
+    """Launch K2 (name 'flash_bwd_dq', outs (dq,)) or K3 ('flash_bwd_dkv',
+    outs (dk, dv)) into the f32 outputs `outs`."""
+    _check_kernel_inputs(q, k, v, g)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    for label, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or tuple(t.shape) != (B * H, S) or not t.is_contiguous()):
+            raise ValueError("flash kernel: %s must be contiguous float32 "
+                             "[B*H, S] on %s" % (label, q.device))
+    lib = _build.load("flash_bwd")
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 15
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), outs[0].data_ptr(),
+             outs[-1].data_ptr(), B, S, H, KV, D,
+             1 if q.dtype == torch.bfloat16 else 0,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *g.stride()[:3], *outs[0].stride()[:3], float(scale),
+             int(bool(causal)), _device_index(q), stream)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (name, err))
+    LAUNCHES[name] += 1
+
+
+def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal):
+    """Launch K2 on the card: f32 dq [B, S, H, D]."""
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch_bwd("flash_bwd_dq", q, k, v, g, lse, delta, scale, causal, (dq,))
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal):
+    """Launch K3 on the card: f32 dk, dv [B, S, KV, D]."""
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
+    _launch_bwd("flash_bwd_dkv", q, k, v, g, lse, delta, scale, causal,
+                (dk, dv))
+    return dk, dv
+
+
+def flash_block_bwd(q, k, v, g, lse, delta, scale, causal):
+    """The flash backward given lse and delta = rowsum(dO * O) ([B*H, S]
+    f32): q, g (the output gradient) [B, S, H, D], k, v [B, S, KV, D].
+    Returns f32 (dq, dk, dv) with dk, dv summed over each kv head's GQA
+    group. The seam ring attention reuses with the global lse and delta.
+    A CPU tensor takes the plain version; any other device launches K2 and
+    K3 or raises."""
+    if q.device.type == "cpu":
+        return _flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal)
+    dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash path with its gradient, as the JAX package's custom_vjp:
+    the forward (K1) saves q, k, v, O and lse; the backward computes
+    delta = rowsum(dO * O) in f32 from the O it returned, then runs K2 and
+    K3 and casts their f32 gradients to the input dtype once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, interpret):
+        fwd = _flash_forward_plain if interpret else _flash_forward
+        out, lse = fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.interpret = causal, scale, interpret
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        B, S, H, _ = q.shape
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+            B * H, S).contiguous()
+        if ctx.interpret:
+            bwd = _flash_block_bwd_plain
+        else:
+            bwd = flash_block_bwd
+            if g.is_cuda:
+                g = _kernel_layout(g)
+        dq, dk, dv = bwd(q, k, v, g, lse, delta, ctx.scale, ctx.causal)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
+
+
 def flash_attention(q, k, v, causal=True, scale=None, interpret=False):
-    """Flash attention forward; q,k,v: [B, S, H, D] (kv heads may be
-    fewer). `interpret=True` runs the kernel's plain version on any device,
-    as the JAX package's interpret mode runs its kernel off the chip.
+    """Flash attention with its gradient; q,k,v: [B, S, H, D] (kv heads
+    may be fewer). `interpret=True` runs the kernels' plain versions on any
+    device, as the JAX package's interpret mode runs its kernels off the
+    chip.
 
     Requires S to satisfy blocks_aligned (the `attention` dispatcher takes
     the plain path otherwise)."""
@@ -182,15 +352,8 @@ def flash_attention(q, k, v, causal=True, scale=None, interpret=False):
     if H % k.shape[2]:
         raise ValueError("kv heads (%d) must divide q heads (%d)"
                          % (k.shape[2], H))
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash attention backward is not ported yet; run the "
-            "forward under torch.no_grad() or use impl='xla' to train")
     scale = scale or (1.0 / math.sqrt(D))
-    fwd = _flash_forward_plain if interpret else _flash_forward
-    out, _ = fwd(q, k, v, causal, scale)
-    return out
+    return _FlashAttention.apply(q, k, v, causal, scale, interpret)
 
 
 def blocks_aligned(S):

@@ -33,7 +33,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tile_mma.cuh"
+
 namespace {
+
+using namespace tile_mma;
 
 struct Params {
   const void* q;
@@ -50,9 +54,6 @@ struct Params {
   int causal;
 };
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
 // ---------------------------------------------------------------------------
 // bf16 tensor-core kernel
 // ---------------------------------------------------------------------------
@@ -60,66 +61,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int BM = 64;      // q rows per block, 16 per warp
 constexpr int BN = 64;      // keys per K/V tile
 constexpr int NTHREADS = 128;
-constexpr int PAD = 8;      // row padding (bf16): ldmatrix rows hit distinct banks
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; an invalid row copies nothing and zero-fills.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX mma.m16n8k16): lane = 4 * g + t. A holds rows g and
-// g + 8, columns 2t, 2t+1 (+8); B holds k rows 2t, 2t+1 (+8) of column g;
-// C holds rows g and g + 8, columns 2t, 2t+1.
+// Fragment layouts: see tile_mma.cuh.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_bf16_kernel(Params p) {

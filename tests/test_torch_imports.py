@@ -25,7 +25,9 @@ def _port_sources():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, metaflow_tpu_torch, metaflow_tpu_torch.ops.attention;"
+    code = ("import sys, metaflow_tpu_torch, metaflow_tpu_torch.ops.attention,"
+            " metaflow_tpu_torch.training.train_step,"
+            " metaflow_tpu_torch.training.metrics;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'metaflow_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -58,6 +60,7 @@ def test_entry_points_default_to_cuda():
     from metaflow_tpu_torch.inference import decode
     from metaflow_tpu_torch.models import llama
     from metaflow_tpu_torch.serving import SlotEngine
+    from metaflow_tpu_torch import training
 
     cfg = llama.LlamaConfig.tiny()
     params = llama.init_params(cfg, torch.Generator().manual_seed(0),
@@ -73,6 +76,11 @@ def test_entry_points_default_to_cuda():
             params, tokens, decode.init_kv_cache(cfg, 1, 16, device="cpu"),
             0, cfg),
         lambda: SlotEngine(params, cfg, max_seq_len=32),
+        lambda: llama.loss_fn(params, {"tokens": tokens}, cfg),
+        lambda: training.make_trainer(cfg, llama),
+        lambda: training.make_train_state(cfg, llama),
+        lambda: training.make_train_step(cfg, llama),
+        lambda: training.make_eval_step(cfg, llama),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -80,6 +88,10 @@ def test_entry_points_default_to_cuda():
     # the same calls with device="cpu" run
     assert llama.forward(params, tokens, cfg, device="cpu").shape == \
         (1, 8, cfg.vocab_size)
+    state, step = training.make_trainer(cfg, llama, params=params,
+                                        device="cpu")
+    _, metrics = step(state, {"tokens": tokens})
+    assert metrics["loss"].device.type == "cpu"
 
 
 def test_params_on_another_device_are_refused():

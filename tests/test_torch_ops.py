@@ -1,6 +1,7 @@
 """The PyTorch port's ops against the JAX package's, on the CPU in float32:
-norms, rope, plain attention, and the flash forward (K1) through its plain
-version against the JAX kernel in interpret mode."""
+norms, rope, plain attention, and the flash kernels through their plain
+versions against the JAX kernels in interpret mode: the forward (K1) and
+the gradients of the flash path (K2, K3)."""
 
 import importlib
 
@@ -164,8 +165,89 @@ def test_flash_refusals_match_reference(monkeypatch, blocks, S):
     assert str(port_err.value) == str(ref_err.value)
 
 
-def test_flash_refuses_to_differentiate():
-    q, k, v = _t(*_qkv(S=128, H=2, D=64))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        port_attn.attention(q, k, v, impl="flash")
+def _jax_flash_grads(q, k, v, w, causal, dtype):
+    """Grads of sum(flash_attention(q, k, v) * w) through the JAX package's
+    custom_vjp, its backward kernels (K2, K3) in interpret mode."""
+    def loss(q, k, v):
+        out = ref_attn.flash_attention(q, k, v, causal=causal,
+                                       interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    return [torch.from_numpy(np.array(g.astype(jnp.float32))) for g in grads]
+
+
+def _port_flash_grads(q, k, v, w, causal, dtype):
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_(True)
+              for x in (q, k, v)]
+    out = port_attn.flash_attention(*leaves, causal=causal)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    assert all(t.grad.dtype == dtype for t in leaves)
+    return [t.grad for t in leaves]
+
+
+GRAD_CASES = {
+    "causal_gqa": dict(S=128, H=4, KV=2, causal=True),
+    "non_causal": dict(S=128, H=2, causal=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_flash_grads_match_interpreted_kernels(case):
+    """f32 dq, dk, dv of the port's flash path (its plain backward on the
+    CPU) against jax.grad through the interpreted K2 and K3, within the JAX
+    package's own flash grad tolerance (tests/test_ops.py)."""
+    kw = dict(GRAD_CASES[case])
+    causal = kw.pop("causal")
+    q, k, v = _qkv(**kw)
+    w = _randn(9, *q.shape)
+    want = _jax_flash_grads(q, k, v, w, causal, jnp.float32)
+    got = _port_flash_grads(q, k, v, w, causal, torch.float32)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5,
+                                   rtol=1e-3, err_msg="d" + name)
+
+
+def test_flash_grads_bf16_within_row_limit():
+    """bf16 grads, causal GQA: each side rounds every gradient to bf16 once
+    (JAX also sums dk, dv over the group in bf16, the port in f32), so the
+    row error stays within the bf16 row limit that holds K1's output."""
+    q, k, v = _qkv(S=128, H=4, KV=2)
+    w = _randn(9, *q.shape)
+    want = _jax_flash_grads(q, k, v, w, True, jnp.bfloat16)
+    got = _port_flash_grads(q, k, v, w, True, torch.bfloat16)
+    for name, a, b in zip("qkv", got, want):
+        err = port_attn.flash_out_error(a, b)
+        assert err <= port_attn.FLASH_BF16_ROW_LIMIT, ("d" + name, err)
+        # a gradient off by 2^-5 of its magnitude goes past it
+        assert port_attn.flash_out_error(a.float() * (1 + 2.0 ** -5),
+                                         b) > port_attn.FLASH_BF16_ROW_LIMIT
+
+
+def test_flash_block_bwd_matches_reference():
+    """flash_block_bwd (the seam ring attention reuses) against the JAX
+    package's on the same lse and delta: f32 (dq, dk, dv), the port's dk
+    and dv summed over each GQA group where JAX keeps one per q head."""
+    q, k, v = _qkv(S=128, H=4, KV=2)
+    g = _randn(9, *q.shape)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / np.sqrt(D)
+    fold = lambda x: ref_attn._fold_heads(ref_attn._broadcast_gqa(x, H))
+    out, lse = ref_attn._flash_forward(fold(q), fold(k), fold(v), True, scale,
+                                       interpret=True)
+    delta = jnp.sum(fold(g) * out, axis=-1)
+    ref = ref_attn.flash_block_bwd(fold(q), fold(k), fold(v), fold(g), lse,
+                                   delta, scale, True, interpret=True)
+    port = port_attn.flash_block_bwd(
+        *_t(q, k, v, g), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(np.array(delta)), scale, True)
+    assert all(t.dtype == torch.float32 for t in port)
+    want_dq = np.asarray(ref_attn._unfold_heads(ref[0], B, H))
+    np.testing.assert_allclose(port[0].numpy(), want_dq, atol=1e-5,
+                               rtol=1e-3)
+    for got, want in zip(port[1:], ref[1:]):
+        want = np.asarray(ref_attn._unfold_heads(want, B, H))
+        want = want.reshape(B, S, KV, H // KV, D).sum(3)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-3)
