@@ -15,6 +15,10 @@ from metaflow_tpu.models import llama as ref_llama  # noqa: E402
 from metaflow_tpu_torch.inference import decode as port_decode  # noqa: E402
 from metaflow_tpu_torch.models import llama as port_llama  # noqa: E402
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-3)   # float32, as test_torch_llama
 ATTN_TOL = dict(atol=2e-5, rtol=2e-4)    # float32 attention
 

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "metaflow_tpu")
 

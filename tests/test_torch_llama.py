@@ -14,6 +14,10 @@ import torch  # noqa: E402
 from metaflow_tpu.models import llama as ref_llama  # noqa: E402
 from metaflow_tpu_torch.models import llama as port_llama  # noqa: E402
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 # float32 logits after two layers and the head: sums over 128..512 terms
 # in another order
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-3)

@@ -17,6 +17,10 @@ from metaflow_tpu.ops import rope as ref_rope  # noqa: E402
 from metaflow_tpu_torch.ops import norms as port_norms  # noqa: E402
 from metaflow_tpu_torch.ops import rope as port_rope  # noqa: E402
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 # the packages export a function named `attention` over the module's name
 ref_attn = importlib.import_module("metaflow_tpu.ops.attention")
 port_attn = importlib.import_module("metaflow_tpu_torch.ops.attention")

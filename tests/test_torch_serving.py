@@ -17,6 +17,10 @@ from metaflow_tpu_torch.inference import decode as port_decode  # noqa: E402
 from metaflow_tpu_torch.models import llama as port_llama  # noqa: E402
 from metaflow_tpu_torch.serving import engine as port_engine  # noqa: E402
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def model():

@@ -17,6 +17,10 @@ from metaflow_tpu.training import train_step as ref_ts  # noqa: E402
 from metaflow_tpu_torch.models import llama as port_llama  # noqa: E402
 from metaflow_tpu_torch.training import train_step as port_ts  # noqa: E402
 
+# one intra-op thread: the tests share the CPU with the other pytest
+# workers, on which torch's pool of a thread per core would spin
+torch.set_num_threads(1)
+
 STEPS = 3
 # loss and grad norm per step: f32 sums over the same terms in another
 # order, through two layers, the head and two AdamW updates
