@@ -27,6 +27,24 @@ Phase 5  trains bench_1b: (a) a 2-layer full-width float32 model's loss
          each launching K1 32 times and K2, K3 16 times, every K2/K3 launch
          of step 2 held against its plain version, the loss falling from
          step 1 to step 4; prints step ms, tokens/s, MFU and peak memory.
+Phase 6  holds the grouped-matmul kernels K5 (forward, and on the
+         transposed weights for dx) and K6 (dw) against their plain
+         versions at the cases of ops/fault_check.py's GMM_CASES (empty and
+         one-row groups, row_valid padding, D and F tails, a real tile
+         forced inactive, f32 and bf16), Mixtral-8x7B's down and gate/up
+         training shapes last, and times K5, K6, their plain versions and
+         torch._grouped_mm (a yardstick only: the port never calls it) there.
+Phase 7  trains Mixtral-8x7B at full width, 2 of 32 layers, with
+         moe_dispatch="gmm": (a) in float32 on tokens [2, 513], the loss and
+         every gradient through K5/K6 (and K1-K3) must equal the ones
+         through plain gmm, with both runs routing every token alike;
+         (b) in bf16, 5 AdamW steps on tokens [4, 2049], each launching K5
+         18 and K6 6 times (and K1 4, K2 and K3 2), step 0 profiled by
+         kernel, every K5/K6 launch of step 2 held against its plain
+         version, step 3 run with host synchronisation forbidden, the loss
+         falling from step 1 to step 4;
+         prints step ms, tokens/s, MFU and peak memory; (c) generate()
+         serves 2 prompts x 16 new tokens with the trained bf16 model.
 
 Every run drives every phase, and every phase asserts; the script exits
 non-zero on the first failure, when no CUDA device is present, or when the
@@ -34,6 +52,7 @@ port's package is missing. Its last lines are the kernel report and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -176,7 +195,7 @@ def phase1_kernel_vs_plain(A, torch):
     return record
 
 
-def phase2_forward(torch, llama, A):
+def phase2_forward(torch, llama, A, L):
     cfg = llama.LlamaConfig.llama3_8b()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -197,9 +216,9 @@ def phase2_forward(torch, llama, A):
         return logits, (time.perf_counter() - t) * 1e3
 
     with torch.no_grad():
-        A.reset_launch_counts()
+        L.reset_launch_counts()
         flash_logits, first_ms = run("auto")
-        launches = dict(A.LAUNCHES)
+        launches = dict(L.LAUNCHES)
         if launches["flash_fwd"] != cfg.n_layers:
             raise AssertionError("forward launched K1 %d times, expected %d"
                                  % (launches["flash_fwd"], cfg.n_layers))
@@ -523,7 +542,7 @@ def _leaf_params(torch, params):
             for k, v in params.items()}
 
 
-def phase5a_exact_grads(torch, llama, A, leaves):
+def phase5a_exact_grads(torch, llama, A, L, leaves):
     """A 2-layer full-width bench_1b in float32: the loss gradients through
     K1/K2/K3 against the ones through plain attention."""
     cfg = llama.LlamaConfig.bench_1b(n_layers=2, dtype="float32")
@@ -535,11 +554,11 @@ def phase5a_exact_grads(torch, llama, A, leaves):
     for impl in ("auto", "xla"):
         c = dataclasses.replace(cfg, attention_impl=impl)
         p = _leaf_params(torch, params)
-        A.reset_launch_counts()
+        L.reset_launch_counts()
         loss = llama.loss_fn(p, {"tokens": tokens}, c)
         loss.backward()
         torch.cuda.synchronize()
-        launches[impl] = dict(A.LAUNCHES)
+        launches[impl] = dict(L.LAUNCHES)
         losses[impl] = loss.item()
         grads[impl] = {"/".join(path): t.grad for path, t in leaves(p)}
     excess = {name: _f32_excess(grads["auto"][name], grads["xla"][name])
@@ -552,7 +571,7 @@ def phase5a_exact_grads(torch, llama, A, leaves):
               "grad_excess_by_leaf": excess}
     log(json.dumps(result))
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
+            "flash_bwd_dkv": cfg.n_layers, "gmm_fwd": 0, "gmm_dw": 0}
     if launches["auto"] != want or any(launches["xla"].values()):
         raise AssertionError("phase 5a launches %s, expected %s"
                              % (launches, want))
@@ -592,7 +611,7 @@ def checked_backward(A, run):
     return result, ratios
 
 
-def phase5b_train(torch, llama, A, training):
+def phase5b_train(torch, llama, A, L, training):
     """bench_1b in bf16 at full width and depth: 5 trainer steps on one
     fixed batch of tokens [8, 2049]. Returns the launches of the run."""
     cfg = llama.LlamaConfig.bench_1b()
@@ -611,9 +630,9 @@ def phase5b_train(torch, llama, A, training):
            time.perf_counter() - t0))
     torch.cuda.reset_peak_memory_stats()
     steps, ratios = [], None
-    A.reset_launch_counts()
+    L.reset_launch_counts()
     for i in range(5):
-        before = dict(A.LAUNCHES)
+        before = dict(L.LAUNCHES)
         torch.cuda.synchronize()
         t = time.perf_counter()
         if i == 2:
@@ -625,9 +644,9 @@ def phase5b_train(torch, llama, A, training):
         torch.cuda.synchronize()
         steps.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
                       "loss": loss, "grad_norm": norm,
-                      "launches": {n: A.LAUNCHES[n] - before[n]
-                                   for n in A.LAUNCHES}})
-    launches = dict(A.LAUNCHES)
+                      "launches": {n: L.LAUNCHES[n] - before[n]
+                                   for n in L.LAUNCHES}})
+    launches = dict(L.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = statistics.median(s["ms"] for s in steps if s["step"] != 2
                                 and s["step"] > 0)
@@ -648,7 +667,7 @@ def phase5b_train(torch, llama, A, training):
               "in_model_checks": {n: len(r) for n, r in ratios.items()}}
     log(json.dumps(result))
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers}
+            "flash_bwd_dkv": cfg.n_layers, "gmm_fwd": 0, "gmm_dw": 0}
     for s_ in steps:
         if s_["launches"] != want:
             raise AssertionError("step %d launched %s, expected %s"
@@ -666,6 +685,428 @@ def phase5b_train(torch, llama, A, training):
     return launches
 
 
+def gmm_work(kernel, n, S, K, N, groups):
+    """(operations, bytes) the least a grouped product must do for n routed
+    rows: 2 n K N flop. Bytes: K5 ('gmm_fwd', x [S, K] @ w [G, K, N]) reads
+    the n rows and the weights once and writes all S rows of y; K6
+    ('gmm_dw', K = D, N = F) reads the n rows of x and of dy once and
+    writes the f32 dw."""
+    flops = 2.0 * n * K * N
+    if kernel == "gmm_fwd":
+        return flops, 2.0 * (n * K + groups * K * N + S * N)
+    return flops, 2.0 * n * (K + N) + 4.0 * groups * K * N
+
+
+def library_gmm(torch, x, w, dy, layout):
+    """One PyTorch call for each of K5, K5 on the transposed weights and
+    K6 on the same inputs, as a yardstick of speed: torch._grouped_mm over
+    the active tiles' group offsets where the card's torch has it and takes
+    these operands, else a loop of torch.mm over the groups. Returns
+    ({'fwd', 'dx', 'dw': callable}, the name of what was used)."""
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    groups = w.shape[0]
+    rows = torch.bincount(tg[ta != 0].long(), minlength=groups) * 128
+    offs = torch.cumsum(rows, 0).to(torch.int32)
+    total = int(offs[-1])
+    xa, dya = x[:total], dy[:total]
+    calls = {"fwd": lambda: torch._grouped_mm(xa, w, offs=offs),
+             "dx": lambda: torch._grouped_mm(dya, w.transpose(-2, -1),
+                                             offs=offs),
+             "dw": lambda: torch._grouped_mm(xa.t(), dya, offs=offs)}
+    try:
+        if not hasattr(torch, "_grouped_mm"):
+            raise AttributeError("torch has no _grouped_mm")
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        return calls, "torch._grouped_mm (bf16 out)"
+    except (AttributeError, NotImplementedError, RuntimeError, TypeError,
+            ValueError) as e:
+        log("phase 6: torch._grouped_mm refused (%s); timing a loop of "
+            "torch.mm over the groups" % str(e).splitlines()[0])
+    bounds = [0] + offs.tolist()
+    spans = [(g, bounds[g], bounds[g + 1]) for g in range(groups)
+             if bounds[g + 1] > bounds[g]]
+
+    def loop(fn):
+        return lambda: [fn(g, a, b) for g, a, b in spans]
+
+    calls = {"fwd": loop(lambda g, a, b: torch.mm(x[a:b], w[g])),
+             "dx": loop(lambda g, a, b: torch.mm(dy[a:b], w[g].t())),
+             "dw": loop(lambda g, a, b: torch.mm(x[a:b].t(), dy[a:b]))}
+    return calls, "a loop of torch.mm over the groups"
+
+
+def time_gmm_shape(torch, G, x, w, dy, layout, n_rows, with_plain):
+    """K5, K5 transposed (dx) and K6 times at one training shape, with
+    their bounds, the library calls' and (with_plain) the plain versions'
+    times and the largest |kernel - plain| of y and dw."""
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    S, (groups, D, F) = x.shape[0], w.shape
+    lib, lib_name = library_gmm(torch, x, w, dy, layout)
+    rec = {
+        "ms": cuda_ms(lambda: G._gmm_fwd_cuda(x, w, tg, ta), 10),
+        "dx_ms": cuda_ms(lambda: G._gmm_fwd_cuda(
+            dy, w, tg, ta, w_transposed=True), 10),
+        "dw_ms": cuda_ms(lambda: G._gmm_dw_cuda(x, dy, tg, ta, groups), 10),
+        "library": lib_name,
+        "library_ms": cuda_ms(lib["fwd"], 10),
+        "library_dx_ms": cuda_ms(lib["dx"], 10),
+        "library_dw_ms": cuda_ms(lib["dw"], 10)}
+    for name, work in (("", gmm_work("gmm_fwd", n_rows, S, D, F, groups)),
+                       ("dx_", gmm_work("gmm_fwd", n_rows, S, F, D, groups)),
+                       ("dw_", gmm_work("gmm_dw", n_rows, S, D, F, groups))):
+        rec[name + "bound_ms"], rec[name + "bound_by"] = bound_ms(
+            work, tensor_cores=True)
+        rec[name + "tflop"] = work[0] / 1e12
+    if with_plain:
+        rec["plain_ms"] = cuda_ms(lambda: G._gmm_fwd_plain(x, w, tg, ta), 3)
+        rec["plain_dw_ms"] = cuda_ms(
+            lambda: G._gmm_dw_plain(x, dy, tg, ta, groups), 3)
+        y, dw = G._gmm_fwd_cuda(x, w, tg, ta), G._gmm_dw_cuda(x, dy, tg, ta,
+                                                              groups)
+        rec["max_abs_err"] = (y.float() - G._gmm_fwd_plain(
+            x, w, tg, ta).float()).abs().max().item()
+        rec["max_abs_err_dw"] = (dw - G._gmm_dw_plain(
+            x, dy, tg, ta, groups)).abs().max().item()
+    return rec
+
+
+def phase6_gmm(torch, G, FC):
+    """K5 and K6 against their plain versions at every case of
+    FC.GMM_CASES (each output poisoned with NaN first, so a block left
+    unwritten shows), then the times at the two training shapes. Returns
+    {'gate_up': record, 'down': record}."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    records = {}
+    for name, n, groups, D, F, dt, kind in FC.GMM_CASES:
+        x, w, dy, layout = FC.gmm_inputs(n, groups, D, F, dt, kind, gen)
+        readings = FC.gmm_case_readings(x, w, dy, layout)
+        if dt == torch.bfloat16:
+            limit = {"y": G.GMM_FWD_ROW_LIMIT, "dx": G.GMM_FWD_ROW_LIMIT,
+                     "dw": G.GMM_DW_ROW_LIMIT}
+        else:  # f32: within 1e-5 of the largest |plain|
+            limit = {"y": 1.0, "dx": 1.0, "dw": 1.0}
+        row = {"phase": 6, "case": name, "rows": n,
+               "padded_rows": x.shape[0], "groups": groups, "D": D, "F": F,
+               "dtype": str(dt).split(".")[-1], "readings": readings,
+               "limit": limit,
+               "active_tiles": int(layout["tile_active"].sum())}
+        if not all(v <= limit[k] for k, v in readings.items()):
+            log(json.dumps(row))
+            raise AssertionError("K5/K6 disagree with their plain versions:"
+                                 " %s" % json.dumps(row))
+        if name.startswith("bf16_train"):
+            key = name[len("bf16_train_"):]
+            records[key] = time_gmm_shape(torch, G, x, w, dy, layout, n,
+                                          with_plain=key == "gate_up")
+            row["times"] = records[key]
+            log("phase 6: %s: K5 %.3f ms (bound %.3f), K5 dx %.3f ms, K6 "
+                "%.3f ms (bound %.3f); %s %.3f / %.3f / %.3f ms" % (
+                    key, records[key]["ms"], records[key]["bound_ms"],
+                    records[key]["dx_ms"], records[key]["dw_ms"],
+                    records[key]["dw_bound_ms"], records[key]["library"],
+                    records[key]["library_ms"],
+                    records[key]["library_dx_ms"],
+                    records[key]["library_dw_ms"]))
+        log(json.dumps(row))
+        del x, w, dy, layout
+        torch.cuda.empty_cache()
+    return records
+
+
+@contextlib.contextmanager
+def gmm_route(G, fwd, dw):
+    """Inside the block, gmm's kernel launches go to `fwd` and `dw` (the
+    plain versions, or checking wrappers)."""
+    old = G._gmm_fwd_cuda, G._gmm_dw_cuda
+    G._gmm_fwd_cuda, G._gmm_dw_cuda = fwd, dw
+    try:
+        yield
+    finally:
+        G._gmm_fwd_cuda, G._gmm_dw_cuda = old
+
+
+@contextlib.contextmanager
+def recorded_routing(M, torch):
+    """Inside the block, every call of ops/moe.py's router records its
+    experts and its top-k / top-(k+1) logit margin in the yielded list."""
+    calls, route = [], M.top_k_router
+
+    def recording(logits, num_experts, k, dtype=torch.float32):
+        weights, idx = route(logits, num_experts, k, dtype)
+        top = torch.topk(logits.detach(), k + 1, dim=-1).values
+        calls.append((idx.clone(), (top[:, k - 1] - top[:, k]).min().item()))
+        return weights, idx
+
+    M.top_k_router = recording
+    try:
+        yield calls
+    finally:
+        M.top_k_router = route
+
+
+def _excess_by_slice(got, want):
+    """_f32_excess over the leading dimension's slices, one at a time (the
+    expert leaves are 3.8 GB each in f32)."""
+    if got.ndim < 3:
+        return _f32_excess(got, want)
+    return max(_f32_excess(a, b) for a, b in zip(got, want))
+
+
+def phase7a_exact_grads(torch, mixtral, L, G, M, leaves):
+    """Mixtral-8x7B at full width, 2 layers, float32: the loss gradients
+    through K5/K6 (and K1-K3) against the ones through plain gmm."""
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(n_layers=2, moe_dispatch="gmm",
+                                             dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = mixtral.init_params(cfg, gen)
+    for _, p in leaves(params):
+        p.requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 513), generator=gen,
+                           device="cuda")
+    runs = {}
+    for route in ("kernels", "plain"):
+        plain = (G._gmm_fwd_plain, G._gmm_dw_plain)
+        kernels = (G._gmm_fwd_cuda, G._gmm_dw_cuda)
+        with gmm_route(G, *(plain if route == "plain" else kernels)), \
+                recorded_routing(M, torch) as routing:
+            L.reset_launch_counts()
+            loss = mixtral.loss_fn(params, {"tokens": tokens}, cfg)
+            loss.backward()
+            torch.cuda.synchronize()
+        runs[route] = {"loss": loss.item(), "launches": dict(L.LAUNCHES),
+                       "routing": routing,
+                       "grads": {"/".join(path): p.grad
+                                 for path, p in leaves(params)}}
+        for _, p in leaves(params):
+            p.grad = None
+    same_route = [bool(torch.equal(a[0], b[0])) for a, b in
+                  zip(runs["kernels"]["routing"], runs["plain"]["routing"])]
+    excess = {name: _excess_by_slice(runs["kernels"]["grads"][name], g)
+              for name, g in runs["plain"]["grads"].items()}
+    result = {"phase": "7a", "layers": cfg.n_layers, "tokens": [2, 513],
+              "loss_kernels": runs["kernels"]["loss"],
+              "loss_plain": runs["plain"]["loss"],
+              "launches_kernels": runs["kernels"]["launches"],
+              "launches_plain": runs["plain"]["launches"],
+              "router_calls_same_experts": same_route,
+              "router_min_margin": min(m for _, m in
+                                       runs["kernels"]["routing"]),
+              "grad_excess_max": max(excess.values()),
+              "grad_excess_by_leaf": excess}
+    log(json.dumps(result))
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
+    if runs["kernels"]["launches"] != want or \
+            runs["plain"]["launches"]["gmm_fwd"] or \
+            runs["plain"]["launches"]["gmm_dw"]:
+        raise AssertionError("phase 7a launches %s / %s, expected %s"
+                             % (runs["kernels"]["launches"],
+                                runs["plain"]["launches"], want))
+    if len(same_route) != 2 * L or not all(same_route):
+        raise AssertionError("the kernel and plain runs routed tokens "
+                             "differently: %s" % same_route)
+    if abs(result["loss_kernels"] - result["loss_plain"]) > \
+            1e-5 * abs(result["loss_plain"]) or max(excess.values()) > 1.0:
+        raise AssertionError("f32 loss or gradients through K5/K6 disagree "
+                             "with plain gmm: %s" % json.dumps(result))
+
+
+def checked_gmm(G, FC, run):
+    """run() with every K5 and K6 launch held against the plain version on
+    the same inputs; returns (run's result, {kernel: each launch's reading
+    over its limit, GMM_FWD_ROW_LIMIT or GMM_DW_ROW_LIMIT})."""
+    ratios = {"gmm_fwd": [], "gmm_dw": []}
+    fwd, dw = G._gmm_fwd_cuda, G._gmm_dw_cuda
+
+    def fwd_checked(x, w, tg, ta, w_transposed=False):
+        y = fwd(x, w, tg, ta, w_transposed)
+        ratios["gmm_fwd"].append(FC.gmm_reading(
+            y, G._gmm_fwd_plain(x, w, tg, ta, w_transposed), True)
+            / G.GMM_FWD_ROW_LIMIT)
+        return y
+
+    def dw_checked(x, dy, tg, ta, groups):
+        out = dw(x, dy, tg, ta, groups)
+        ratios["gmm_dw"].append(FC.gmm_reading(
+            out, G._gmm_dw_plain(x, dy, tg, ta, groups), True)
+            / G.GMM_DW_ROW_LIMIT)
+        return out
+
+    with gmm_route(G, fwd_checked, dw_checked):
+        result = run()
+    return result, ratios
+
+
+def active_params(params, cfg):
+    """Parameters a token passes through: all but the embedding table and
+    the unchosen experts' share of the expert weights."""
+    experts = sum(params["layers"][k].numel()
+                  for k in ("w_gate", "w_up", "w_down"))
+    unchosen = experts * (cfg.n_experts - cfg.experts_per_tok) // \
+        cfg.n_experts
+    total = sum(t.numel() for t in params["layers"].values()) + sum(
+        params[k].numel() for k in ("final_norm", "lm_head"))
+    return total - unchosen
+
+
+KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
+    ("K5 gmm_fwd", ("gmm_fwd_bf16", "gmm_fwd_f32")),
+    ("K6 gmm_dw", ("gmm_dw_bf16", "gmm_dw_f32")),
+    ("K1-K3 flash", ("flash_fwd", "flash_bwd")),
+    ("cuBLAS products", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
+                         "sm80_")),
+    ("optimizer and other elementwise", ("elementwise", "vectorized",
+                                         "foreach", "unrolled")),
+    ("reductions", ("reduce",)),
+    ("index, scatter, sort", ("index", "scatter", "gather", "sort",
+                              "radix", "cub")),
+)
+
+
+def profiled(torch, run):
+    """run() under torch.profiler; returns (run's result, device time by
+    KERNEL_GROUPS bucket and by kernel, in ms, and the wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us and getattr(ev, "device_type", None) is not None and \
+                str(ev.device_type).endswith("CUDA"):
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    buckets = {}
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in low for k in keys)), "other")
+        buckets[group] = buckets.get(group, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return result, {"wall_ms": wall, "device_ms": sum(kernels.values()),
+                    "by_group_ms": buckets,
+                    "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def phase7b_train(torch, mixtral, L, G, FC, training):
+    """Mixtral-8x7B in bf16 at full width, 2 of 32 layers: 5 trainer steps
+    on one fixed batch of tokens [4, 2049]. Returns (the launches of the
+    run, its result, the trained params, the config)."""
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(n_layers=2, moe_dispatch="gmm")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, gen)
+    n_params, n_active = mixtral.num_params(params), active_params(params,
+                                                                   cfg)
+    B, S = 4, 2048
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device="cuda")}
+    state, step = training.make_trainer(
+        cfg, mixtral, optimizer=training.default_optimizer(
+            warmup_steps=1, total_steps=10), params=params)
+    torch.cuda.synchronize()
+    log("phase 7b: mixtral_8x7b bf16 params %.3fB (%.3fB active a token), "
+        "depth %d of 32, init %.1fs" % (n_params / 1e9, n_active / 1e9,
+                                        cfg.n_layers,
+                                        time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    steps, ratios, profile = [], None, None
+    L.reset_launch_counts()
+    for i in range(5):
+        before = dict(L.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 0:  # outside the median: the profiler slows the host
+            (state, m), profile = profiled(torch, lambda: step(state, batch))
+        elif i == 2:
+            (state, m), ratios = checked_gmm(G, FC,
+                                             lambda: step(state, batch))
+        elif i == 3:  # the main path reads nothing back to the host
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, m = step(state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            state, m = step(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        steps.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
+                      "loss": loss, "grad_norm": norm,
+                      "launches": {n: L.LAUNCHES[n] - before[n]
+                                   for n in L.LAUNCHES}})
+    launches = dict(L.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(s_["ms"] for s_ in steps
+                                if s_["step"] in (1, 3, 4))
+    tokens_per_s = B * S / step_ms * 1e3
+    fpt = training.flops_per_token_dense(n_active, cfg.n_layers, cfg.dim, S)
+    peak = training.peak_tflops(torch.cuda.get_device_name(0))
+    if peak is None:
+        raise AssertionError("no peak rate for %s"
+                             % torch.cuda.get_device_name(0))
+    result = {"phase": "7b", "steps": steps, "step_ms": step_ms,
+              "tokens_per_s": tokens_per_s, "params": n_params,
+              "active_params": n_active, "flops_per_token": fpt,
+              "peak_tflops": peak, "mfu": tokens_per_s * fpt / (peak * 1e12),
+              "peak_mem_gb": peak_gb, "launches": launches,
+              "in_model_reading_over_limit": {
+                  n: max(r) for n, r in ratios.items()},
+              "in_model_checks": {n: len(r) for n, r in ratios.items()},
+              "profile_step_0": profile}
+    log(json.dumps(result))
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
+    for s_ in steps:
+        if s_["launches"] != want:
+            raise AssertionError("step %d launched %s, expected %s"
+                                 % (s_["step"], s_["launches"], want))
+    if len(ratios["gmm_fwd"]) != 9 * L or len(ratios["gmm_dw"]) != 3 * L \
+            or max(max(r) for r in ratios.values()) > 1.0:
+        raise AssertionError("K5/K6 off their plain versions inside the "
+                             "model: %s" % ratios)
+    losses = [s_["loss"] for s_ in steps]
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        raise AssertionError("non-finite losses %s" % losses)
+    if abs(losses[0] - losses[1]) > 1e-5 * abs(losses[0]) or \
+            not losses[4] < losses[1]:
+        raise AssertionError("the loss must hold at step 1 (lr 0 on the "
+                             "first update) and fall to step 4: %s" % losses)
+    return launches, result, state["params"], cfg
+
+
+def phase7c_generate(torch, decode, params, cfg):
+    """generate() with the trained bf16 Mixtral: 2 prompts x 16 new
+    tokens through the MoE decode branch."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                            device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode.generate(params, prompts, cfg, 16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    new = out[:, 40:]
+    result = {"phase": "7c", "prompts": 2, "new_tokens": 16, "wall_s": wall,
+              "tokens_per_s": new.numel() / wall,
+              "first_tokens": new[:, :4].tolist()}
+    log(json.dumps(result))
+    if out.shape != (2, 56) or not torch.equal(out[:, :40], prompts) or \
+            not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
+        raise AssertionError("generate returned %s" % out.tolist())
+
+
 def main():
     import torch
 
@@ -679,12 +1120,16 @@ def main():
     sys.path.insert(0, HERE)
     from metaflow_tpu_torch import training
     from metaflow_tpu_torch.inference import decode
-    from metaflow_tpu_torch.models import llama
+    from metaflow_tpu_torch.models import llama, mixtral
     from metaflow_tpu_torch.ops import KERNELS, _build
+    from metaflow_tpu_torch.ops import fault_check as FC
     from metaflow_tpu_torch.serving import engine as engine_mod
     from metaflow_tpu_torch.training.train_step import leaves
 
     A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+    L = importlib.import_module("metaflow_tpu_torch.ops.launches")
+    G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
+    M = importlib.import_module("metaflow_tpu_torch.ops.moe")
     start = time.perf_counter()
 
     # phase 0: the card, the builds, the numerics settings
@@ -714,7 +1159,7 @@ def main():
 
     inference = phase1_kernel_vs_plain(A, torch)
     log("phase 1 done at %.1fs" % (time.perf_counter() - start))
-    params, fwd_launches = phase2_forward(torch, llama, A)
+    params, fwd_launches = phase2_forward(torch, llama, A, L)
     log("phase 2 done at %.1fs" % (time.perf_counter() - start))
     phase3_serve(torch, llama, decode, engine_mod, params)
     log("phase 3 done at %.1fs" % (time.perf_counter() - start))
@@ -723,29 +1168,73 @@ def main():
     torch.cuda.empty_cache()
     records = phase4_backward(A, torch)
     log("phase 4 done at %.1fs" % (time.perf_counter() - start))
-    phase5a_exact_grads(torch, llama, A, leaves)
+    phase5a_exact_grads(torch, llama, A, L, leaves)
     log("phase 5a done at %.1fs" % (time.perf_counter() - start))
-    train_launches = phase5b_train(torch, llama, A, training)
+    train_launches = phase5b_train(torch, llama, A, L, training)
     log("phase 5b done at %.1fs" % (time.perf_counter() - start))
+    gc.collect()  # bench_1b's state: the Mixtral phases need the memory
+    torch.cuda.empty_cache()
+    gmm_records = phase6_gmm(torch, G, FC)
+    log("phase 6 done at %.1fs" % (time.perf_counter() - start))
+    phase7a_exact_grads(torch, mixtral, L, G, M, leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 7a done at %.1fs" % (time.perf_counter() - start))
+    moe_launches, _, moe_params, moe_cfg = phase7b_train(
+        torch, mixtral, L, G, FC, training)
+    log("phase 7b done at %.1fs" % (time.perf_counter() - start))
+    phase7c_generate(torch, decode, moe_params, moe_cfg)
+    log("phase 7c done at %.1fs" % (time.perf_counter() - start))
 
-    # one line per kernel: its launches in the training run (phase 5b),
-    # its times at the training shape (phase 4); K1 also at the inference
-    # shape (phase 1) with its launches in the forward (phase 2)
+    # one line per kernel: the flash kernels' launches in the bench_1b run
+    # (phase 5b) and times at its training shape (phase 4), K1 also at the
+    # inference shape (phases 1, 2); K5 and K6's launches in the Mixtral
+    # run (phase 7b) and times at its gate/up shape (phase 6), with the
+    # down shape and K5's dx beside them
     ported, not_yet = [], []
     for k in KERNELS:
         if k.get("source") is None:
             not_yet.append({"name": k["name"], "replaces": k["replaces"],
                             "status": "not yet ported"})
             continue
-        rec = records[k["name"]]
         line = {"name": k["name"], "route": k["route"],
                 "source": k["source"], "replaces": k["replaces"],
-                "status": "ported", "launches": train_launches[k["name"]],
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"],
-                "shape": "B, S, H, KV, D = %s bf16 causal" % (TRAIN_SHAPE,)}
+                "status": "ported"}
+        if k["name"].startswith("gmm"):
+            up, down = gmm_records["gate_up"], gmm_records["down"]
+            shape = ("16384 routed rows (17408 padded) in 8 groups, "
+                     "D 4096, F 14336, bf16")
+            if k["name"] == "gmm_fwd":
+                line.update(
+                    launches=moe_launches["gmm_fwd"],
+                    max_abs_err=up["max_abs_err"], ms=up["ms"],
+                    plain_ms=up["plain_ms"], bound_ms=up["bound_ms"],
+                    bound_by=up["bound_by"], library_ms=up["library_ms"],
+                    library=up["library"], shape="gate/up forward: " + shape,
+                    down_ms=down["ms"], down_bound_ms=down["bound_ms"],
+                    dx_ms=up["dx_ms"], dx_bound_ms=up["dx_bound_ms"],
+                    down_dx_ms=down["dx_ms"],
+                    library_down_ms=down["library_ms"],
+                    library_dx_ms=up["library_dx_ms"])
+            else:
+                line.update(
+                    launches=moe_launches["gmm_dw"],
+                    max_abs_err=up["max_abs_err_dw"], ms=up["dw_ms"],
+                    plain_ms=up["plain_dw_ms"], bound_ms=up["dw_bound_ms"],
+                    bound_by=up["dw_bound_by"],
+                    library_ms=up["library_dw_ms"], library=up["library"],
+                    shape="dw of the gate/up weights: " + shape,
+                    down_ms=down["dw_ms"],
+                    down_bound_ms=down["dw_bound_ms"],
+                    library_down_ms=down["library_dw_ms"])
+            ported.append(line)
+            continue
+        rec = records[k["name"]]
+        line.update(launches=train_launches[k["name"]],
+                    max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+                    plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                    bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                    shape="B, S, H, KV, D = %s bf16 causal" % (TRAIN_SHAPE,))
         if k["name"] == "flash_fwd":
             line["inference_shape"] = {
                 "shape": "B, S, H, KV, D = (2, 2048, 32, 8, 128) bf16 "

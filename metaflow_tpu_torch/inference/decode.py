@@ -1,4 +1,4 @@
-"""Autoregressive decoding with a KV cache (Llama family), in PyTorch.
+"""Autoregressive decoding with a KV cache (Llama and Mixtral), in PyTorch.
 
 Prefill runs the prompt through the stack once and fills a static-shape
 [layers, batch, max_seq, kv_heads, head_dim] cache; each decode step
@@ -24,7 +24,6 @@ import torch
 
 from .. import knobs
 from ..models.llama import (
-    _matmul_f32,
     _tokens_on,
     check_params_device,
     layer_params,
@@ -32,6 +31,8 @@ from ..models.llama import (
     resolve_device,
 )
 from ..ops.attention import NEG_INF, _broadcast_gqa
+from ..ops.matmul import matmul_f32
+from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
 
@@ -180,12 +181,24 @@ def _attn_qkv(cfg, cos, sin, pos, x, lp):
 
 
 def _block_ffn(cfg, x, attn, lp):
-    """Output projection, residual and the dense (Llama) FFN."""
+    """Output projection, residual and the dense (Llama) or MoE (Mixtral)
+    FFN, picked off the layer's parameters."""
     B, T, _ = x.shape
-    if "router" in lp:
-        raise NotImplementedError("the MoE (Mixtral) FFN is not ported yet")
     x = x + attn.reshape(B, T, cfg.n_heads * cfg.head_dim) @ lp["wo"]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if "router" in lp:  # Mixtral: token-choice MoE FFN
+        dispatch = cfg.moe_dispatch
+        if dispatch in ("gmm", "gmm_ep"):
+            # gmm pads every expert to 128-row tiles, sized for training
+            # batches; sparse with no capacity is lossless, the same
+            # function
+            dispatch = "sparse"
+        moe_out, _aux = moe_ffn(
+            h, lp["router"], lp["w_gate"], lp["w_up"], lp["w_down"],
+            num_experts_per_tok=cfg.experts_per_tok,
+            capacity_factor=None,  # decode batches are tiny: lossless
+            dispatch=dispatch)
+        return x + moe_out
     gate = torch.nn.functional.silu(h @ lp["w_gate"])
     up = h @ lp["w_up"]
     return x + (gate * up) @ lp["w_down"]
@@ -224,14 +237,15 @@ def decode_forward(params, tokens, cache, pos, cfg, attn_impl="dense",
     x = params["embed"][tokens].to(dt)
     cos, sin = rope_frequencies(
         cfg.head_dim, max_seq, cfg.rope_theta, dtype=dt,
-        llama3_scaling=cfg.rope_llama3_scaling, device=device)
+        llama3_scaling=getattr(cfg, "rope_llama3_scaling", False),
+        device=device)
     pos_max = _max_position(pos) if attn_impl == "chunked" else None
     for i in range(cfg.n_layers):
         x = _decode_layer(cfg, cos, sin, pos, x, layer_params(params, i),
                           cache["k"][i], cache["v"][i], attn_impl=attn_impl,
                           pos_max=pos_max)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _matmul_f32(x, params["lm_head"]), cache
+    return matmul_f32(x, params["lm_head"]), cache
 
 
 def request_step_keys(seed, max_new_tokens, row=0):

@@ -1,3 +1,3 @@
-from . import llama
+from . import llama, mixtral
 
-__all__ = ["llama"]
+__all__ = ["llama", "mixtral"]

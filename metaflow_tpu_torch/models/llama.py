@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
+from ..ops.matmul import matmul_f32
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
 
@@ -97,38 +98,6 @@ def check_params_device(params, device):
     if where.type != device.type or device.index not in (None, where.index):
         raise ValueError("parameters live on %s, not on %s"
                          % (where, device))
-
-
-class _MatmulBF16F32(torch.autograd.Function):
-    """bf16 a [N, K] @ bf16 b [K, M] with float32 products, sums and result
-    on the card (torch.mm with out_dtype, which autograd cannot
-    differentiate). The gradients are the JAX package's transpose of its
-    bf16 x bf16 -> f32 einsum as XLA on a TPU computes it at default
-    precision: the f32 cotangent enters the products rounded to bf16, the
-    sums are f32, and each gradient is cast to bf16."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return torch.mm(a, b, out_dtype=torch.float32)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.to(torch.bfloat16)
-        return g @ b.t(), a.t() @ g
-
-
-def _matmul_f32(a, b):
-    """a @ b with float32 products and sums and a float32 result (the JAX
-    package's preferred_element_type=float32 on bf16 operands). On the card
-    a bf16 product writes float32 directly; elsewhere the operands are cast
-    up first."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16 and b.ndim == 2:
-        out = _MatmulBF16F32.apply(a.reshape(-1, a.shape[-1]), b)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.matmul(a.float(), b.float())
 
 
 def init_params(cfg, generator=None, device="cuda"):
@@ -264,13 +233,13 @@ def hidden_states(params, tokens, cfg, device="cuda"):
 def forward(params, tokens, cfg, device="cuda"):
     """tokens: [B, S] int → logits [B, S, vocab] (float32)."""
     x = hidden_states(params, tokens, cfg, device=device)
-    return _matmul_f32(x, params["lm_head"])
+    return matmul_f32(x, params["lm_head"])
 
 
 def _ce_sums(x, lm_head, targets, mask):
     """Summed cross-entropy and token count for one [B, C, D] hidden chunk.
     The f32 logits live only inside this function."""
-    logits = _matmul_f32(x, lm_head)
+    logits = matmul_f32(x, lm_head)
     lse = torch.logsumexp(logits, dim=-1)
     tl = logits.gather(-1, targets[..., None])[..., 0]
     nll = lse - tl

@@ -2,6 +2,7 @@ from .norms import rms_norm, layer_norm
 from .rope import rope_frequencies, apply_rope
 from .attention import (attention, flash_attention, flash_block_bwd,
                         reference_attention)
+from .gmm import gather_rows, gmm, make_group_layout, scatter_rows
 
 __all__ = [
     "rms_norm",
@@ -12,11 +13,15 @@ __all__ = [
     "flash_attention",
     "flash_block_bwd",
     "reference_attention",
+    "gmm",
+    "make_group_layout",
+    "scatter_rows",
+    "gather_rows",
 ]
 
 # Every TPU kernel of the JAX package (each function that reaches
 # pl.pallas_call) and where the port stands on it. A ported kernel names its
-# route and source; its launches are counted in attention.LAUNCHES under the
+# route and source; its launches are counted in launches.LAUNCHES under the
 # same name. The JAX package is frozen, so the file:line references hold.
 KERNELS = [
     {"name": "flash_fwd", "replaces": "metaflow_tpu/ops/attention.py:123",
@@ -28,6 +33,8 @@ KERNELS = [
      "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_bwd.cu"},
     {"name": "flash_block_fwd",
      "replaces": "metaflow_tpu/ops/attention.py:395"},
-    {"name": "gmm_fwd", "replaces": "metaflow_tpu/ops/gmm.py:149"},
-    {"name": "gmm_dw", "replaces": "metaflow_tpu/ops/gmm.py:200"},
+    {"name": "gmm_fwd", "replaces": "metaflow_tpu/ops/gmm.py:149",
+     "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/gmm.cu"},
+    {"name": "gmm_dw", "replaces": "metaflow_tpu/ops/gmm.py:200",
+     "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/gmm.cu"},
 ]

@@ -88,6 +88,15 @@ def load(name):
     return lib
 
 
+def device_index(t):
+    """The index of the CUDA device tensor t lives on, the C entry points'
+    `device` argument."""
+    import torch
+
+    return (t.device.index if t.device.index is not None
+            else torch.cuda.current_device())
+
+
 def build_info(name):
     """Where the library of `name` came from: path, whether this process
     built it, the build's seconds and nvcc's output (ptxas register and

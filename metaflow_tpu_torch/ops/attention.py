@@ -18,20 +18,12 @@ import torch
 
 from .. import knobs
 from . import _build
+from .launches import LAUNCHES
 
 BLOCK_Q = knobs.get_int("TPUFLOW_FLASH_BLOCK_Q")
 BLOCK_K = knobs.get_int("TPUFLOW_FLASH_BLOCK_K")
 NEG_INF = -1e30
 FLASH_HEAD_DIMS = (64, 128)
-
-# kernel launches since the last reset; a run reads them to show which
-# kernels its path went through
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-
-
-def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _broadcast_gqa(k, num_q_heads):
@@ -148,11 +140,6 @@ def _rows_aligned(t):
                                           for st in t.stride()[:3])
 
 
-def _device_index(t):
-    return (t.device.index if t.device.index is not None
-            else torch.cuda.current_device())
-
-
 def _flash_forward_cuda(q, k, v, causal, scale):
     """Launch K1 on the card. Same contract as _flash_forward_plain."""
     B, S, H, D = q.shape
@@ -173,7 +160,7 @@ def _flash_forward_cuda(q, k, v, causal, scale):
              1 if q.dtype == torch.bfloat16 else 0,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], float(scale), int(bool(causal)),
-             _device_index(q), stream)
+             _build.device_index(q), stream)
     if err != 0:
         raise RuntimeError("flash_fwd kernel launch failed: CUDA error %d"
                            % err)
@@ -270,7 +257,7 @@ def _launch_bwd(name, q, k, v, g, lse, delta, scale, causal, outs):
              1 if q.dtype == torch.bfloat16 else 0,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *g.stride()[:3], *outs[0].stride()[:3], float(scale),
-             int(bool(causal)), _device_index(q), stream)
+             int(bool(causal)), _build.device_index(q), stream)
     if err != 0:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, err))

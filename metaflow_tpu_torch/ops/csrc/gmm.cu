@@ -1,0 +1,567 @@
+// Grouped matrix multiply for Hopper (sm_90a): the dropless-MoE kernels.
+//
+// K5 `gmm_fwd` replaces the TPU kernel `_gmm_fwd_kernel` of
+// metaflow_tpu/ops/gmm.py (launched by `_gmm_call`): y[tile] =
+// x[tile] @ B[tile_group[tile]] for every 128-row tile of the grouped,
+// padded layout that ops/gmm.py `make_group_layout` builds. B[g] is w[g]
+// ([G, K, N], the forward) or, with w_transposed, w[g]^T read from the
+// stored [G, N, K] weights (the dx of the backward, dy @ w[g]^T, with no
+// transposed copy of w). An inactive tile (tile_active 0) holds only
+// padding: it skips the products and writes zeros, since the output comes
+// from torch.empty.
+//
+// K6 `gmm_dw` replaces `_gmm_dw_kernel` (launched by `_gmm_dw_call`):
+// dw[g] = sum over the active tiles i of group g of x[tile i]^T dy[tile i],
+// in f32. The TPU kernel walks the tiles in grid order and revisits one
+// output block across a group's consecutive tiles; a CUDA grid has no
+// order. Here one block owns one (group, 128-row D block, 128-column F
+// block): it finds its group's tile range by binary search over
+// tile_group (non-decreasing, as the layout makes it), loops over the
+// active tiles of that range with the sum in registers, and writes its
+// block once. No atomics, no second pass; a group with no active tile
+// writes zeros (the JAX backward's `visited` mask).
+//
+// Arithmetic: bf16 operands on the tensor cores (mma.sync m16n8k16, f32
+// sums), K5 rounding its f32 sum once to bf16, K6 writing f32. The float32
+// path (tests, the f32 exactness check) uses plain FMA in 64 x 64 tiles.
+//
+// Bound at the Mixtral-8x7B training shape (16384 routed rows in 8 groups,
+// 17408 padded rows, D 4096, F 14336): one K5 or K6 launch does 2 * 16384
+// * 4096 * 14336 = 1.92 TFLOP, 1.95 ms at the card's 989 TFLOP/s dense
+// bf16, against 0.94 GB of weights (0.28 ms at 3.35 TB/s). So both are
+// bound by operations. What the design does about it: 128 x 128 output
+// tiles per block of 8 warps (64 x 32 each), operands fetched with
+// ldmatrix (.trans where the operand is stored k-major), a three-stage
+// cp.async pipeline over 64-deep k slices, two blocks per SM, and blocks
+// ordered in bands of 16 row tiles so that a wave's x rows and weight
+// columns stay in the 50 MB L2. wgmma and TMA, which the full tensor-core
+// rate needs, and split-K for uneven groups in K6 are left to later work.
+//
+// Tails: K and N need not be multiples of the tile. A 16-byte chunk that is
+// whole and aligned is copied with cp.async; a partial or unaligned one is
+// read element by element and zero-filled, so any shape is taken.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tile_mma.cuh"
+
+namespace {
+
+using namespace tile_mma;
+
+constexpr int TILE = 128;  // rows of a layout tile (block_s)
+constexpr int BM = 128;    // output rows per block
+constexpr int BN = 128;    // output columns per block
+constexpr int BK = 64;     // reduction depth per pipeline stage
+constexpr int STAGES = 3;
+constexpr int WARPS_M = 2, WARPS_N = 4;  // the warps of a block
+constexpr int NTHREADS = 32 * WARPS_M * WARPS_N;
+constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // a warp's outputs
+constexpr int MI = WM / 16, NI = WN / 8;  // its m16 and n8 fragments
+constexpr int MIN_BLOCKS = 2;             // blocks per SM
+constexpr int BAND = 16;  // row blocks per band of the block order
+
+// The (row block, column block) of linear block `pid` over an m x n grid of
+// output blocks, walked in bands of BAND row blocks, column by column.
+__device__ __forceinline__ void band_order(int pid, int m, int n, int& bm,
+                                           int& bn) {
+  const int per_band = BAND * n;
+  const int first = (pid / per_band) * BAND;
+  const int rows = min(m - first, BAND);
+  const int in_band = pid % per_band;
+  bm = first + in_band % rows;
+  bn = in_band / rows;
+}
+
+// 8 bf16 values at src[0, 8) into shared dst, zero past `valid` (0..8).
+__device__ __forceinline__ void load_chunk(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           int valid) {
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async_16(dst, src, true);
+  } else if (valid <= 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      dst[e] = e < valid ? src[e] : __float2bfloat16(0.f);
+  }
+}
+
+// A row-major [rows][cols] tile of a matrix with leading dimension ld into
+// shared memory with leading dimension LD: tile rows r < row_lim and
+// columns c < col_lim are read, the rest zero-filled.
+template <int ROWS, int COLS, int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int row_lim,
+                                          int col_lim, int tid) {
+  constexpr int CPR = COLS / 8;
+  for (int c = tid; c < ROWS * CPR; c += NTHREADS) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int valid = r < row_lim ? col_lim - col : 0;
+    load_chunk(dst + r * LD + col, src + (r < row_lim ? r * ld + col : 0),
+               valid);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5: bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+struct FwdParams {
+  const __nv_bfloat16* x;  // [S, K], rows ldx apart
+  const __nv_bfloat16* w;  // [G, K, N] or, transposed, [G, N, K]
+  __nv_bfloat16* y;        // [S, N], rows ldy apart
+  const int* tile_group;
+  const int* tile_active;
+  int n_tiles, K, N;
+  long long ldx, ldy, w_sg, w_ld;  // w_ld: stride of w[g]'s leading dim
+};
+
+constexpr int LDA = BK + PAD;  // x tile [BM][BK]
+constexpr int LDB = BN + PAD;  // w tile [BK][BN] (k-major, the forward)
+constexpr int LDT = BK + PAD;  // w tile [BN][BK] (n-major, transposed)
+constexpr int A_STAGE = BM * LDA;
+constexpr int B_STAGE = (BK * LDB > BN * LDT) ? BK * LDB : BN * LDT;
+constexpr int FWD_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;
+
+template <bool TRANS>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+    gmm_fwd_bf16_kernel(FwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sB = sA + STAGES * A_STAGE;
+
+  const int n_blocks = (p.N + BN - 1) / BN;
+  int tile, nb;
+  band_order(blockIdx.x, p.n_tiles, n_blocks, tile, nb);
+  const int n0 = nb * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __nv_bfloat16* yg = p.y + static_cast<long long>(tile) * TILE * p.ldy;
+
+  if (p.tile_active[tile] == 0) {  // padding only: write zeros
+    for (int i = tid; i < BM * BN; i += NTHREADS) {
+      const int r = i / BN, c = n0 + i % BN;
+      if (c < p.N) yg[r * p.ldy + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  const int g = p.tile_group[tile];
+  const __nv_bfloat16* xg = p.x + static_cast<long long>(tile) * TILE * p.ldx;
+  const __nv_bfloat16* wg = p.w + g * p.w_sg;
+
+  auto load_stage = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    load_tile<BM, BK, LDA>(sA + stage * A_STAGE, xg + k0, p.ldx, BM,
+                           p.K - k0, tid);
+    if (TRANS)  // rows n of w[g] ([N, K]), columns k
+      load_tile<BN, BK, LDT>(sB + stage * B_STAGE, wg + n0 * p.w_ld + k0,
+                             p.w_ld, p.N - n0, p.K - k0, tid);
+    else  // rows k of w[g] ([K, N]), columns n
+      load_tile<BK, BN, LDB>(sB + stage * B_STAGE, wg + k0 * p.w_ld + n0,
+                             p.w_ld, p.K - k0, p.N - n0, tid);
+  };
+
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  const int nk = (p.K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {  // K5 k loop
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kt + STAGES - 1 < nk)
+      load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;
+    const __nv_bfloat16* cB = sB + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MI][4], b[NI / 2][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        load_a(a[mi], cA, LDA, wm0 + mi * 16, kk * 16, lane);
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj) {
+        if (TRANS)
+          load_b_nk(b[nj], cB, LDT, wn0 + nj * 16, kk * 16, lane);
+        else
+          load_b_kn(b[nj], cB, LDB, kk * 16, wn0 + nj * 16, lane);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
+                   b[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm0 + mi * 16 + gr + h * 8;
+        const int c = n0 + wn0 + ni * 8 + t4 * 2;
+        __nv_bfloat16* dst = yg + r * p.ldy + c;
+        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (c + 1 < p.N && (reinterpret_cast<uintptr_t>(dst) & 3) == 0) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+        } else {
+          if (c < p.N) dst[0] = __float2bfloat16(v0);
+          if (c + 1 < p.N) dst[1] = __float2bfloat16(v1);
+        }
+      }
+}
+
+// ---------------------------------------------------------------------------
+// K6: bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+struct DwParams {
+  const __nv_bfloat16* x;   // [S, D], rows ldx apart
+  const __nv_bfloat16* dy;  // [S, F], rows lddy apart
+  float* dw;                // [G, D, F], contiguous
+  const int* tile_group;
+  const int* tile_active;
+  int n_tiles, D, F;
+  long long ldx, lddy;
+};
+
+constexpr int LDX = BM + PAD;  // x tile [BK rows][BM columns of D]
+constexpr int LDY = BN + PAD;  // dy tile [BK rows][BN columns of F]
+constexpr int X_STAGE = BK * LDX;
+constexpr int Y_STAGE = BK * LDY;
+constexpr int DW_SMEM = STAGES * (X_STAGE + Y_STAGE) * 2;
+
+// The first index i of the non-decreasing tile_group with
+// tile_group[i] >= g (n when there is none).
+__device__ __forceinline__ int lower_bound(const int* tile_group, int n,
+                                           int g) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_group[mid] < g) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The A fragment of rows [m0, m0 + 16), columns [k0, k0 + 16) of a product
+// whose A is the transpose of a row-major [k][m] shared tile.
+__device__ __forceinline__ void load_a_km(uint32_t (&a)[4],
+                                          const __nv_bfloat16* tile, int ld,
+                                          int m0, int k0, int lane) {
+  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
+                           ((lane >> 3) & 1) * 8);
+}
+
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+    gmm_dw_bf16_kernel(DwParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sY = sX + STAGES * X_STAGE;
+
+  const int g = blockIdx.y;
+  int db, fb;
+  band_order(blockIdx.x, (p.D + BM - 1) / BM, (p.F + BN - 1) / BN, db, fb);
+  const int d0 = db * BM, f0 = fb * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int first = lower_bound(p.tile_group, p.n_tiles, g);
+  const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);
+  constexpr int KPT = TILE / BK;  // k slices per tile
+  const int nk = (last - first) * KPT;
+
+  auto active = [&](int kt) { return p.tile_active[first + kt / KPT] != 0; };
+  auto load_stage = [&](int kt, int stage) {
+    const long long row = static_cast<long long>(first) * TILE + kt * BK;
+    load_tile<BK, BM, LDX>(sX + stage * X_STAGE, p.x + row * p.ldx + d0,
+                           p.ldx, BK, p.D - d0, tid);
+    load_tile<BK, BN, LDY>(sY + stage * Y_STAGE, p.dy + row * p.lddy + f0,
+                           p.lddy, BK, p.F - f0, tid);
+  };
+
+  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // k slices of inactive tiles are neither loaded nor multiplied; the
+  // commit groups stay one per slice so the pipeline's waits hold
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk && active(s)) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < nk && active(next)) load_stage(next, next % STAGES);
+    cp_async_commit();
+    if (!active(kt)) continue;  // K6 skips inactive tiles
+    const __nv_bfloat16* cX = sX + (kt % STAGES) * X_STAGE;
+    const __nv_bfloat16* cY = sY + (kt % STAGES) * Y_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MI][4], b[NI / 2][4];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        load_a_km(a[mi], cX, LDX, wm0 + mi * 16, kk * 16, lane);
+#pragma unroll
+      for (int nj = 0; nj < NI / 2; ++nj)
+        load_b_kn(b[nj], cY, LDY, kk * 16, wn0 + nj * 16, lane);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni)
+          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
+                   b[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = p.dw + static_cast<long long>(g) * p.D * p.F;
+  const int gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + wm0 + mi * 16 + gr + h * 8;
+        const int f = f0 + wn0 + ni * 8 + t4 * 2;
+        if (d >= p.D) continue;
+        float* dst = out + static_cast<long long>(d) * p.F + f;
+        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        if (f + 1 < p.F && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          if (f < p.F) dst[0] = v0;
+          if (f + 1 < p.F) dst[1] = v1;
+        }
+      }
+}
+
+// ---------------------------------------------------------------------------
+// float32 kernels: 64 x 64 output tiles, 4 x 4 per thread, FMA only
+// ---------------------------------------------------------------------------
+
+constexpr int FB = 64;  // output tile edge
+constexpr int FK = 16;  // reduction depth per step
+
+struct F32Params {
+  const float* x;
+  const float* w;  // K5: w; K6: dy
+  float* y;        // K5: y; K6: dw
+  const int* tile_group;
+  const int* tile_active;
+  int n_tiles, K, N, trans;
+  long long ldx, ldy, w_sg, w_ld;
+};
+
+// The 4 x 4 outputs of thread (ty, tx) += sA[k][ty*4 + i] * sB[k][tx*4 + j].
+__device__ __forceinline__ void fma_tile(float (&acc)[4][4],
+                                         const float (*sA)[FB + 1],
+                                         const float (*sB)[FB + 1], int ty,
+                                         int tx) {
+#pragma unroll
+  for (int k = 0; k < FK; ++k) {
+    float a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = sA[k][ty * 4 + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = sB[k][tx * 4 + j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// K5 in f32: one block per (64-row half of a tile, 64-column block).
+__global__ void __launch_bounds__(256) gmm_fwd_f32_kernel(F32Params p) {
+  __shared__ float sA[FK][FB + 1];  // x, k-major
+  __shared__ float sB[FK][FB + 1];  // w[g], k-major
+  const int rb = blockIdx.y, n0 = blockIdx.x * FB;
+  const int tile = rb * FB / TILE;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long long r0 = static_cast<long long>(rb) * FB;
+  if (p.tile_active[tile] == 0) {
+    for (int i = tid; i < FB * FB; i += 256) {
+      const int c = n0 + i % FB;
+      if (c < p.N) p.y[(r0 + i / FB) * p.ldy + c] = 0.f;
+    }
+    return;
+  }
+  const float* wg = p.w + p.tile_group[tile] * p.w_sg;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < p.K; k0 += FK) {
+    for (int i = tid; i < FB * FK; i += 256) {
+      const int r = i / FK, k = i % FK;  // x rows
+      sA[k][r] = k0 + k < p.K ? p.x[(r0 + r) * p.ldx + k0 + k] : 0.f;
+      const int kb = i / FB, n = i % FB;  // w: B[k][n]
+      float v = 0.f;
+      if (k0 + kb < p.K && n0 + n < p.N)
+        v = p.trans ? wg[(n0 + n) * p.w_ld + k0 + kb]
+                    : wg[(k0 + kb) * p.w_ld + n0 + n];
+      sB[kb][n] = v;
+    }
+    __syncthreads();
+    fma_tile(acc, sA, sB, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = n0 + tx * 4 + j;
+      if (c < p.N) p.y[(r0 + ty * 4 + i) * p.ldy + c] = acc[i][j];
+    }
+}
+
+// K6 in f32: one block per (group, 64-row D block, 64-column F block).
+__global__ void __launch_bounds__(256) gmm_dw_f32_kernel(F32Params p) {
+  __shared__ float sA[FK][FB + 1];  // x rows, D columns
+  __shared__ float sB[FK][FB + 1];  // dy rows, F columns
+  const int g = blockIdx.z, d0 = blockIdx.y * FB, f0 = blockIdx.x * FB;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int first = lower_bound(p.tile_group, p.n_tiles, g);
+  const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);
+  float acc[4][4] = {};
+  for (int t = first; t < last; ++t) {
+    if (p.tile_active[t] == 0) continue;
+    for (int k0 = 0; k0 < TILE; k0 += FK) {
+      const long long row0 = static_cast<long long>(t) * TILE + k0;
+      for (int i = tid; i < FB * FK; i += 256) {
+        const int k = i / FB, c = i % FB;
+        sA[k][c] = d0 + c < p.K ? p.x[(row0 + k) * p.ldx + d0 + c] : 0.f;
+        sB[k][c] = f0 + c < p.N ? p.w[(row0 + k) * p.ldy + f0 + c] : 0.f;
+      }
+      __syncthreads();
+      fma_tile(acc, sA, sB, ty, tx);
+      __syncthreads();
+    }
+  }
+  float* out = p.y + static_cast<long long>(g) * p.K * p.N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + ty * 4 + i, f = f0 + tx * 4 + j;
+      if (d < p.K && f < p.N) out[static_cast<long long>(d) * p.N + f] =
+          acc[i][j];
+    }
+}
+
+cudaError_t set_smem(const void* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. Strides are in elements; the last
+// dimension of every tensor is contiguous. dtype: 0 = float32, 1 = bf16.
+// S (rows of x and y) is a multiple of the 128-row layout tile. Each
+// returns the CUDA error code of the launch (0 on success).
+
+// K5: y [S, N] = per tile x [S, K] @ B[tile_group[tile]], with B[g] = w[g]
+// ([G, K, N]) or, when w_transposed, w[g]^T (w [G, N, K]). w_ld is the
+// stride of w[g]'s first dimension.
+extern "C" int gmm_fwd(const void* x, const void* w, void* y,
+                       const void* tile_group, const void* tile_active, int S,
+                       int K, int N, long long ldx, long long ldy,
+                       long long w_sg, long long w_ld, int w_transposed,
+                       int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = S / TILE;
+  const int* tg = static_cast<const int*>(tile_group);
+  const int* ta = static_cast<const int*>(tile_active);
+  if (n_tiles == 0 || N == 0) return 0;
+  if (dtype == 1) {
+    FwdParams p{static_cast<const __nv_bfloat16*>(x),
+                static_cast<const __nv_bfloat16*>(w),
+                static_cast<__nv_bfloat16*>(y), tg, ta, n_tiles, K, N, ldx,
+                ldy, w_sg, w_ld};
+    const int blocks = n_tiles * ((N + BN - 1) / BN);
+    if (w_transposed) {
+      err = set_smem(reinterpret_cast<const void*>(gmm_fwd_bf16_kernel<true>),
+                     FWD_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gmm_fwd_bf16_kernel<true><<<blocks, NTHREADS, FWD_SMEM, st>>>(p);
+    } else {
+      err = set_smem(
+          reinterpret_cast<const void*>(gmm_fwd_bf16_kernel<false>), FWD_SMEM);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gmm_fwd_bf16_kernel<false><<<blocks, NTHREADS, FWD_SMEM, st>>>(p);
+    }
+  } else if (dtype == 0) {
+    F32Params p{static_cast<const float*>(x), static_cast<const float*>(w),
+                static_cast<float*>(y), tg, ta, n_tiles, K, N, w_transposed,
+                ldx, ldy, w_sg, w_ld};
+    dim3 grid((N + FB - 1) / FB, S / FB);
+    gmm_fwd_f32_kernel<<<grid, 256, 0, st>>>(p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: dw [G, D, F] f32 (contiguous) = per group the sum over its active
+// tiles of x[tile]^T dy[tile]; x [S, D], dy [S, F].
+extern "C" int gmm_dw(const void* x, const void* dy, void* dw,
+                      const void* tile_group, const void* tile_active, int S,
+                      int D, int F, int G, long long ldx, long long lddy,
+                      int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = S / TILE;
+  const int* tg = static_cast<const int*>(tile_group);
+  const int* ta = static_cast<const int*>(tile_active);
+  if (G == 0 || D == 0 || F == 0) return 0;
+  if (dtype == 1) {
+    DwParams p{static_cast<const __nv_bfloat16*>(x),
+               static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(dw),
+               tg, ta, n_tiles, D, F, ldx, lddy};
+    err = set_smem(reinterpret_cast<const void*>(gmm_dw_bf16_kernel),
+                   DW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(((D + BM - 1) / BM) * ((F + BN - 1) / BN), G);
+    gmm_dw_bf16_kernel<<<grid, NTHREADS, DW_SMEM, st>>>(p);
+  } else if (dtype == 0) {
+    F32Params p{static_cast<const float*>(x), static_cast<const float*>(dy),
+                static_cast<float*>(dw), tg, ta, n_tiles, D, F, 0,
+                ldx, lddy, 0, 0};
+    dim3 grid((F + FB - 1) / FB, (D + FB - 1) / FB, G);
+    gmm_dw_f32_kernel<<<grid, 256, 0, st>>>(p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

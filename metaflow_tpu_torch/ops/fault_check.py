@@ -1,14 +1,18 @@
-"""Plant faults in copies of the flash backward source and read each
-against the plain version, at chip_smoke.py's phase-4 shapes and inputs:
-the evidence behind attention.FLASH_BWD_ROW_LIMIT. Needs the card:
+"""Plant faults in copies of a kernel source and read each against the
+plain version: the evidence behind attention.FLASH_BWD_ROW_LIMIT (faults
+in csrc/flash_bwd.cu, read at chip_smoke.py's phase-4 shapes) and
+gmm's GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT (faults in csrc/gmm.cu, read
+at phase 6's cases, which chip_smoke.py takes from GMM_CASES below). Needs
+the card:
 
-    python -m metaflow_tpu_torch.ops.fault_check
+    python -m metaflow_tpu_torch.ops.fault_check [flash_bwd] [gmm]
 
-Each fault is a small edit of csrc/flash_bwd.cu, built into its own
-directory under metaflow_tpu_torch/_build/faults/; the sound source is read
-first. Prints one JSON line per fault with each shape's readings: the row
-error (flash_out_error) of dq, dk, dv for bf16, and for f32 the largest
-|error| over atol 1e-5 + rtol 1e-3 |plain|."""
+(both sources when none is named). Each fault is a small edit of the
+source, built into its own directory under metaflow_tpu_torch/_build/
+faults/; the sound source is read first. Prints one JSON line per fault
+with each shape's readings: the row error (attention.flash_out_error) for
+bf16, and for f32 the largest |error| over 1e-5 + 1e-3 |plain| (flash)
+or over 1e-5 of the largest |plain| (gmm)."""
 
 import importlib
 import json
@@ -29,7 +33,7 @@ SHAPES = [  # (B, S, H, KV, D, dtype, causal), as chip_smoke.py's phase 4
 _ROUND4 = ("__uint_as_float((__float_as_uint(%s) + 0x40000u) & "
            "0xfff80000u)")  # round to 4 mantissa bits
 
-FAULTS = {
+FLASH_FAULTS = {
     "sound": [],
     # K2 keeps the keys past the diagonal
     "k2_causal_mask_dropped": [
@@ -56,10 +60,146 @@ FAULTS = {
          "        st[j][e] = " + _ROUND4 % "pv" + ";")],
 }
 
+_ACC_TO_BF16 = (
+    "#pragma unroll\n"
+    "    for (int mi = 0; mi < MI; ++mi)\n"
+    "      for (int ni = 0; ni < NI; ++ni)\n"
+    "        for (int e = 0; e < 4; ++e)\n"
+    "          acc[mi][ni][e] = __bfloat162float(__float2bfloat16("
+    "acc[mi][ni][e]));\n")
 
-def readings(A):
+GMM_FAULTS = {
+    "sound": [],
+    # K5 multiplies each tile by the previous tile's group's weights
+    "k5_wrong_group_weights": [
+        ("const int g = p.tile_group[tile];",
+         "const int g = p.tile_group[tile > 0 ? tile - 1 : 0];")],
+    # K5 leaves an inactive tile's output unwritten
+    "k5_inactive_tile_unwritten": [
+        ("if (p.tile_active[tile] == 0) {  // padding only: write zeros",
+         "if (p.tile_active[tile] == 0) { return;")],
+    # K5 skips the last 64-deep k slice
+    "k5_last_k_slice_skipped": [
+        ("for (int kt = 0; kt < nk; ++kt) {  // K5 k loop",
+         "for (int kt = 0; kt < nk - 1; ++kt) {")],
+    # K5 keeps its running sum in bf16 (rounded after every k slice)
+    "k5_bf16_accumulator": [
+        ("    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;",
+         _ACC_TO_BF16
+         + "    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;")],
+    # K6 loads and multiplies the rows of inactive tiles too
+    "k6_counts_inactive_tiles": [
+        ("auto active = [&](int kt) { return p.tile_active[first + kt / KPT]"
+         " != 0; };",
+         "auto active = [&](int kt) { return true; };")],
+}
+
+# chip_smoke.py's phase-6 cases: (name, rows, groups, D, F, dtype, how the
+# rows are grouped). "empty_one_row" leaves group 1 empty and gives group 2
+# one row; "row_valid" marks 70 % of the rows as padding; "inactive" forces
+# a real tile inactive; "train" is Mixtral-8x7B's gate/up and down shapes
+# at 16384 routed rows (tokens [4, 2048], top-2 of 8).
+GMM_CASES = [
+    ("f32_tails", 700, 5, 40, 72, torch.float32, "random"),
+    ("f32_inactive", 2000, 8, 256, 384, torch.float32, "inactive"),
+    ("bf16_empty_one_row", 256, 4, 32, 64, torch.bfloat16, "empty_one_row"),
+    ("bf16_row_valid", 700, 3, 64, 128, torch.bfloat16, "row_valid"),
+    ("bf16_unaligned_tails", 700, 3, 37, 50, torch.bfloat16, "random"),
+    ("bf16_inactive", 2000, 8, 256, 384, torch.bfloat16, "inactive"),
+    ("bf16_train_down", 16384, 8, 14336, 4096, torch.bfloat16, "random"),
+    ("bf16_train_gate_up", 16384, 8, 4096, 14336, torch.bfloat16, "random"),
+]
+
+
+def gmm_inputs(n, groups, D, F, dtype, kind, gen):
+    """One phase-6 case's inputs on the card: x [S, D] in the grouped
+    layout, w [G, D, F], an output gradient dy [S, F], the layout."""
+    G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
+    valid = None
+    if kind == "empty_one_row":
+        gids = torch.tensor([3] * (n - 6) + [0] * 5 + [2], device="cuda")
+    else:
+        gids = torch.randint(0, groups, (n,), generator=gen, device="cuda")
+    if kind == "row_valid":
+        valid = (torch.rand(n, generator=gen, device="cuda") < 0.3).long()
+    layout = G.make_group_layout(gids, groups, row_valid=valid)
+    rows = torch.randn(n, D, generator=gen, device="cuda", dtype=dtype)
+    if valid is not None:  # padding rows carry zeros, as gmm_ep's do
+        rows = rows * valid[:, None].to(dtype)
+    x = G.scatter_rows(rows, layout)
+    del rows
+    w = torch.randn(groups, D, F, generator=gen, device="cuda", dtype=dtype)
+    w *= D ** -0.5
+    dy = torch.randn(x.shape[0], F, generator=gen, device="cuda", dtype=dtype)
+    if kind == "inactive":  # a tile of real rows, forced inactive
+        layout["tile_active"] = layout["tile_active"].clone()
+        layout["tile_active"][1] = 0
+    return x, w, dy, layout
+
+
+def _poisoned(launch, shape, dtype):
+    """launch() after freeing a NaN block of the output's size, which the
+    caching allocator hands to the kernel's torch.empty: output the kernel
+    leaves unwritten reads NaN instead of stale numbers."""
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    return launch()
+
+
+def gmm_reading(got, want, bf16_operands):
+    """bf16 operands: attention.flash_out_error, the unit of gmm's
+    GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT (also for K6's f32 dw); f32
+    operands: max |error| over 1e-5 of the largest |plain| (f32 sums of the
+    same products in another order differ by about 1e-6 of it here). NaN
+    reads inf."""
+    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+    if not torch.isfinite(got).all():
+        return float("inf")
+    if bf16_operands:
+        return A.flash_out_error(got, want)
+    return ((got - want).abs().max() / (1e-5 * want.abs().max() + 1e-30)
+            ).item()
+
+
+def gmm_case_readings(x, w, dy, layout):
+    """K5 (y), K5 on the transposed weights (dx) and K6 (dw) against their
+    plain versions on one case's inputs: {'y': reading, 'dx': ...,
+    'dw': ...}, each kernel's output poisoned beforehand."""
+    G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    S, (n_g, D, F) = x.shape[0], w.shape
+    bf16 = x.dtype == torch.bfloat16
+    y = _poisoned(lambda: G._gmm_fwd_cuda(x, w, tg, ta), (S, F), x.dtype)
+    out = {"y": gmm_reading(y, G._gmm_fwd_plain(x, w, tg, ta), bf16)}
+    del y
+    dx = _poisoned(lambda: G._gmm_fwd_cuda(dy, w, tg, ta, w_transposed=True),
+                   (S, D), x.dtype)
+    out["dx"] = gmm_reading(dx, G._gmm_fwd_plain(dy, w, tg, ta,
+                                                 w_transposed=True), bf16)
+    del dx
+    dw = _poisoned(lambda: G._gmm_dw_cuda(x, dy, tg, ta, n_g), (n_g, D, F),
+                   torch.float32)
+    out["dw"] = gmm_reading(dw, G._gmm_dw_plain(x, dy, tg, ta, n_g), bf16)
+    return out
+
+
+def gmm_readings():
+    """Each phase-6 case's readings of K5 and K6, on phase 6's inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for name, n, groups, D, F, dt, kind in GMM_CASES:
+        x, w, dy, layout = gmm_inputs(n, groups, D, F, dt, kind, gen)
+        row = {"case": name, "dtype": str(dt).split(".")[-1]}
+        row.update(gmm_case_readings(x, w, dy, layout))
+        rows.append(row)
+        del x, w, dy, layout
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_readings():
     """Each phase-4 shape's readings of K2 and K3 against the plain
     version, on phase 4's inputs."""
+    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     for B, S, H, KV, D, dt, causal in SHAPES:
@@ -87,37 +227,57 @@ def readings(A):
     return rows
 
 
-def main():
+SOURCES = {  # source name -> (faults, readings, {reading: limit's name})
+    "flash_bwd": (FLASH_FAULTS, flash_readings, (
+        "attention", {k: "FLASH_BWD_ROW_LIMIT" for k in ("dq", "dk", "dv")})),
+    "gmm": (GMM_FAULTS, gmm_readings, (
+        "gmm", {"y": "GMM_FWD_ROW_LIMIT", "dx": "GMM_FWD_ROW_LIMIT",
+                "dw": "GMM_DW_ROW_LIMIT"})),
+}
+
+
+def run(source):
+    faults, readings, (module, limit_names) = SOURCES[source]
+    mod = importlib.import_module("metaflow_tpu_torch.ops." + module)
+    limit = {k: getattr(mod, name) for k, name in limit_names.items()}
+    keys = tuple(limit_names)
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    text0 = (csrc / (source + ".cu")).read_text()
+    try:
+        for name, edits in faults.items():
+            text = text0
+            for old, new in edits:
+                if old not in text:
+                    raise ValueError("fault %s: %r is not in %s.cu"
+                                     % (name, old, source))
+                text = text.replace(old, new)
+            root = build_dir / "faults" / source / name
+            shutil.rmtree(root, ignore_errors=True)
+            shutil.copytree(csrc, root / "csrc")
+            (root / "csrc" / (source + ".cu")).write_text(text)
+            _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "build"
+            _build._LOADED.pop(source, None)
+            rows = readings()
+            worst = {n: max(r[n] for r in rows if r["dtype"] == "bfloat16")
+                     for n in keys}
+            worst_f32 = {n: max(r[n] for r in rows if r["dtype"] == "float32")
+                         for n in keys}
+            print(json.dumps({"source": source, "fault": name,
+                              "worst_bf16": worst, "worst_f32": worst_f32,
+                              "limit": limit, "shapes": rows}), flush=True)
+    finally:
+        _build.CSRC, _build.BUILD_DIR = csrc, build_dir
+        _build._LOADED.pop(source, None)
+
+
+def main(argv=None):
     if not torch.cuda.is_available():
         print("fault_check: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    source = (csrc / "flash_bwd.cu").read_text()
-    try:
-        for name, edits in FAULTS.items():
-            text = source
-            for old, new in edits:
-                if old not in text:
-                    raise ValueError("fault %s: %r is not in flash_bwd.cu"
-                                     % (name, old))
-                text = text.replace(old, new)
-            root = build_dir / "faults" / name
-            shutil.rmtree(root, ignore_errors=True)
-            shutil.copytree(csrc, root / "csrc")
-            (root / "csrc" / "flash_bwd.cu").write_text(text)
-            _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "build"
-            _build._LOADED.pop("flash_bwd", None)
-            rows = readings(A)
-            worst = {n: max(r[n] for r in rows if r["dtype"] == "bfloat16")
-                     for n in ("dq", "dk", "dv")}
-            print(json.dumps({"fault": name, "worst_bf16": worst,
-                              "limit": A.FLASH_BWD_ROW_LIMIT,
-                              "shapes": rows}), flush=True)
-    finally:
-        _build.CSRC, _build.BUILD_DIR = csrc, build_dir
-        _build._LOADED.pop("flash_bwd", None)
+    names = list(argv if argv is not None else sys.argv[1:]) or list(SOURCES)
+    for source in names:
+        run(source)
     return 0
 
 

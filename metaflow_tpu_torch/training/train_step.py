@@ -115,18 +115,38 @@ class AdamW:
         lr = self.schedule(state["count"])
         bc1 = 1 - self.b1 ** count
         bc2 = 1 - self.b2 ** count
-        for (_, p), (_, g), (_, mu), (_, nu) in pairs:
-            g = g.float()
-            g = torch.where(trigger, g, g / norm * self.clip_norm)
-            mu_new = (1 - self.b1) * g + self.b1 * mu.float()
-            nu_new = (1 - self.b2) * (g * g) + self.b2 * nu.float()
-            mu.copy_(mu_new)
-            nu.copy_(nu_new)
-            u = (mu_new / bc1) / (torch.sqrt(nu.float() / bc2) + self.eps)
-            u = u + self.weight_decay * p.float()
-            p.copy_(p.float() + (-lr) * u)
+        for (_, leaf), (_, grad), (_, m), (_, v) in pairs:
+            for p, g, mu, nu in _update_chunks(leaf, grad, m, v):
+                g = g.float()
+                g = torch.where(trigger, g, g / norm * self.clip_norm)
+                mu_new = (1 - self.b1) * g + self.b1 * mu.float()
+                nu_new = (1 - self.b2) * (g * g) + self.b2 * nu.float()
+                mu.copy_(mu_new)
+                nu.copy_(nu_new)
+                u = (mu_new / bc1) / (torch.sqrt(nu.float() / bc2)
+                                      + self.eps)
+                u = u + self.weight_decay * p.float()
+                p.copy_(p.float() + (-lr) * u)
         state["count"] = count
         return norm
+
+
+# elements of one leaf that an AdamW update works on at once: the f32
+# temporaries of a stacked expert weight (Mixtral-8x7B's w_gate at two
+# layers, [2, 8, 4096, 14336], is 3.8 GB per temporary) are held to 256 MB
+# each
+UPDATE_CHUNK = 1 << 26
+
+
+def _update_chunks(*tensors):
+    """The leaf's (param, grad, mu, nu) as flat views of at most
+    UPDATE_CHUNK elements each; a smaller leaf gives one. The update is
+    elementwise, so its result does not depend on the split. Every leaf is
+    contiguous: the parameters and moments are made so, and autograd gives
+    a grad its parameter's strides (view raises otherwise)."""
+    flat = [t.view(-1) for t in tensors]
+    for start in range(0, flat[0].numel(), UPDATE_CHUNK):
+        yield tuple(t[start:start + UPDATE_CHUNK] for t in flat)
 
 
 def default_optimizer(lr=3e-4, weight_decay=0.1, clip_norm=1.0,

@@ -1,9 +1,12 @@
-"""The flash kernels on the card against their plain versions, at shapes
-beyond chip_smoke.py's: the forward (K1) and the backward (K2, K3) at
-ragged sequence lengths, strided inputs and output gradients, head dim 64,
-GQA, the dispatcher's and autograd's routes to the kernels, and one
-trainer step through them. Needs an NVIDIA GPU (tests/conftest.py imports
-jax, so skip it where jax is missing):
+"""The kernels on the card against their plain versions, at shapes beyond
+chip_smoke.py's: the flash forward (K1) and backward (K2, K3) at ragged
+sequence lengths, strided inputs and output gradients, head dim 64, GQA,
+the dispatcher's and autograd's routes to the kernels, and one trainer
+step through them; the grouped matmul K5 (both weight layouts) and K6 over
+empty and one-row groups, row_valid padding, D and F tails and both
+dtypes, its autograd route, a Mixtral trainer step through K5/K6 against
+plain gmm, and that step with no host synchronisation. Needs an NVIDIA GPU
+(tests/conftest.py imports jax, so skip it where jax is missing):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -14,6 +17,8 @@ import pytest
 import torch
 
 A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
+L = importlib.import_module("metaflow_tpu_torch.ops.launches")
 
 pytestmark = pytest.mark.cuda
 
@@ -64,12 +69,12 @@ def test_kernel_reads_strided_inputs(cuda):
 def test_dispatcher_launches_the_kernel(cuda):
     q = torch.randn(1, 256, 4, 128, generator=cuda, device="cuda").to(
         torch.bfloat16)
-    A.reset_launch_counts()
+    L.reset_launch_counts()
     A.attention(q, q, q, impl="auto")
-    assert A.LAUNCHES["flash_fwd"] == 1
+    assert L.LAUNCHES["flash_fwd"] == 1
     A.attention(q[:, :, :, :64], q[:, :, :, :64], q[:, :, :, :64],
                 impl="auto")  # D % 128 != 0: the plain path
-    assert A.LAUNCHES["flash_fwd"] == 1
+    assert L.LAUNCHES["flash_fwd"] == 1
     with pytest.raises(ValueError, match="head dims"):
         A.flash_attention(*(torch.zeros(1, 128, 2, 96, device="cuda"),) * 3)
 
@@ -86,9 +91,9 @@ def test_llama_forward_on_card_matches_cpu(cuda):
     on_card = {k: ({n: w.cuda() for n, w in v.items()}
                    if isinstance(v, dict) else v.cuda())
                for k, v in params.items()}
-    A.reset_launch_counts()
+    L.reset_launch_counts()
     got = llama.forward(on_card, tokens, cfg)
-    assert A.LAUNCHES["flash_fwd"] == cfg.n_layers
+    assert L.LAUNCHES["flash_fwd"] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-3)
 
 
@@ -157,10 +162,10 @@ def test_autograd_runs_the_backward_kernels(cuda, dtype):
 
     weight = torch.randn(2, 256, 8, 128, generator=cuda, device="cuda")
     for w in (None, weight):
-        A.reset_launch_counts()
+        L.reset_launch_counts()
         got = grads("auto", w)
-        assert (A.LAUNCHES["flash_fwd"], A.LAUNCHES["flash_bwd_dq"],
-                A.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
+        assert (L.LAUNCHES["flash_fwd"], L.LAUNCHES["flash_bwd_dq"],
+                L.LAUNCHES["flash_bwd_dkv"]) == (1, 1, 1)
         want = grads("flash_interpret", w)
         for a, b in zip(got, want):
             assert a.dtype == dt
@@ -187,15 +192,176 @@ def test_trainer_step_flash_matches_plain_attention(cuda):
         state, step = training.make_trainer(
             cfg, llama, optimizer=training.default_optimizer(
                 warmup_steps=1, total_steps=10), params=params)
-        A.reset_launch_counts()
+        L.reset_launch_counts()
         runs[impl] = [{k: v.item() for k, v in step(state, {"tokens": tokens}
                                                     )[1].items()}
                       for _ in range(3)]
         if impl == "auto":
-            assert A.LAUNCHES["flash_bwd_dq"] == 3 * cfg.n_layers
-            assert A.LAUNCHES["flash_bwd_dkv"] == 3 * cfg.n_layers
-            assert A.LAUNCHES["flash_fwd"] == 6 * cfg.n_layers  # remat
+            assert L.LAUNCHES["flash_bwd_dq"] == 3 * cfg.n_layers
+            assert L.LAUNCHES["flash_bwd_dkv"] == 3 * cfg.n_layers
+            assert L.LAUNCHES["flash_fwd"] == 6 * cfg.n_layers  # remat
     for got, want in zip(runs["auto"], runs["xla"]):
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
         assert got["grad_norm"] == pytest.approx(want["grad_norm"],
                                                  rel=1e-4)
+
+
+# (group ids, groups, D, F, valid share): empty groups and a one-row group,
+# row_valid padding, D and F tails (multiples of 8 read by cp.async, odd
+# ones element by element), several row tiles per group
+GMM_CASES = {
+    "empty_and_one_row": ([3] * 250 + [0] * 5 + [2] * 1, 4, 32, 64, None),
+    "row_valid": ("random", 3, 64, 128, 0.3),
+    "tails_aligned": ("random", 5, 40, 72, None),
+    "tails_unaligned": ("random", 3, 37, 50, None),
+    "multi_tile": ("random", 8, 256, 384, None),
+}
+
+
+def _gmm_inputs(case, dtype, gen):
+    gids, groups, D, F, valid_share = GMM_CASES[case]
+    if gids == "random":
+        gids = torch.randint(0, groups, (700,), generator=gen, device="cuda")
+    gids = torch.as_tensor(gids, device="cuda")
+    valid = None
+    if valid_share is not None:
+        valid = (torch.rand(gids.shape, generator=gen, device="cuda")
+                 < valid_share).long()
+    layout = G.make_group_layout(gids, groups, row_valid=valid)
+    rows = torch.randn(gids.shape[0], D, generator=gen, device="cuda")
+    if valid is not None:  # padding rows carry zeros, as gmm_ep's do
+        rows = rows * valid[:, None]
+    x = G.scatter_rows(rows, layout).to(dtype)
+    w = (torch.randn(groups, D, F, generator=gen, device="cuda") * 0.1).to(
+        dtype)
+    dy = torch.randn(x.shape[0], F, generator=gen, device="cuda").to(dtype)
+    return x, w, dy, layout
+
+
+def _assert_gmm_close(got, want, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    if got.dtype == torch.float32 and name != "dw_bf16":
+        # f32 on both sides: the sums differ only in order
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=name)
+    else:
+        # K6's f32 dw from bf16 operands is held to its own limit; an
+        # output rounded to bf16 (K5's, or a bf16 weight gradient) to K5's
+        err = A.flash_out_error(got, want)
+        limit = (G.GMM_DW_ROW_LIMIT if got.dtype == torch.float32
+                 else G.GMM_FWD_ROW_LIMIT)
+        assert err <= limit, (name, err)
+
+
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gmm_kernels_match_plain(cuda, case, dtype):
+    """K5 (w as stored, and transposed for dx) and K6 against their plain
+    versions."""
+    dt = getattr(torch, dtype)
+    x, w, dy, layout = _gmm_inputs(case, dt, cuda)
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    tag = "" if dt == torch.float32 else "_bf16"
+    _assert_gmm_close(G._gmm_fwd_cuda(x, w, tg, ta),
+                      G._gmm_fwd_plain(x, w, tg, ta), "y" + tag)
+    _assert_gmm_close(G._gmm_fwd_cuda(dy, w, tg, ta, w_transposed=True),
+                      G._gmm_fwd_plain(dy, w, tg, ta, w_transposed=True),
+                      "dx" + tag)
+    _assert_gmm_close(G._gmm_dw_cuda(x, dy, tg, ta, w.shape[0]),
+                      G._gmm_dw_plain(x, dy, tg, ta, w.shape[0]), "dw" + tag)
+
+
+def test_gmm_inactive_tile_is_skipped_and_zeroed(cuda):
+    """A real tile forced inactive: K5 writes zeros over whatever the
+    output memory held, and K6 leaves its rows out."""
+    x, w, dy, layout = _gmm_inputs("multi_tile", torch.bfloat16, cuda)
+    tg, ta = layout["tile_group"], layout["tile_active"].clone()
+    ta[1] = 0
+    assert torch.count_nonzero(x[128:256]) > 0
+    torch.full((x.shape[0], w.shape[2]), float("nan"), dtype=x.dtype,
+               device="cuda")
+    y = G._gmm_fwd_cuda(x, w, tg, ta)  # reuses the freed NaN block
+    assert torch.isfinite(y).all() and y[128:256].abs().max() == 0
+    _assert_gmm_close(y, G._gmm_fwd_plain(x, w, tg, ta), "y_bf16")
+    _assert_gmm_close(G._gmm_dw_cuda(x, dy, tg, ta, w.shape[0]),
+                      G._gmm_dw_plain(x, dy, tg, ta, w.shape[0]), "dw_bf16")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gmm_autograd_runs_the_kernels(cuda, dtype):
+    """gmm on tensors that require grad launches K5 once forward and once
+    for dx, K6 once; its gradients equal the plain versions'."""
+    dt = getattr(torch, dtype)
+    x, w, dy, layout = _gmm_inputs("multi_tile", dt, cuda)
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    xl, wl = (t.clone().requires_grad_(True) for t in (x, w))
+    L.reset_launch_counts()
+    y = G.gmm(xl, wl, tg, tile_active=ta)
+    y.backward(dy)
+    assert (L.LAUNCHES["gmm_fwd"], L.LAUNCHES["gmm_dw"]) == (2, 1)
+    assert xl.grad.dtype == wl.grad.dtype == dt
+    want_dx = G._gmm_fwd_plain(dy, w, tg, ta, w_transposed=True)
+    want_dw = G._gmm_dw_plain(x, dy, tg, ta, w.shape[0]).to(dt)
+    tag = "" if dt == torch.float32 else "_bf16"
+    _assert_gmm_close(xl.grad, want_dx, "dx" + tag)
+    _assert_gmm_close(wl.grad, want_dw, "dw" + tag)
+    with pytest.raises(ValueError, match="block_s"):
+        G.gmm(x, w, tg, tile_active=ta, block_s=64)
+
+
+def _tiny_mixtral(**kw):
+    from metaflow_tpu_torch.models import mixtral
+
+    # head dim 128 for the flash kernels; 4 experts of 256
+    return mixtral, mixtral.MixtralConfig.tiny(
+        dim=256, n_heads=2, n_kv_heads=1, moe_dispatch="gmm", **kw)
+
+
+def test_mixtral_trainer_step_matches_plain_gmm(cuda, monkeypatch):
+    """Two trainer steps of a float32 Mixtral (gmm dispatch) through K5
+    and K6 against the same steps with gmm's plain versions."""
+    from metaflow_tpu_torch import training
+
+    mixtral, cfg = _tiny_mixtral()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129),
+                           generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for route in ("kernels", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(G, "_gmm_fwd_cuda", G._gmm_fwd_plain)
+            monkeypatch.setattr(G, "_gmm_dw_cuda", G._gmm_dw_plain)
+        params = mixtral.init_params(cfg, torch.Generator(device="cuda")
+                                     .manual_seed(0))
+        state, step = training.make_trainer(
+            cfg, mixtral, optimizer=training.default_optimizer(
+                warmup_steps=1, total_steps=10), params=params)
+        L.reset_launch_counts()
+        runs[route] = [{k: v.item() for k, v in step(
+            state, {"tokens": tokens})[1].items()} for _ in range(2)]
+        if route == "kernels":  # 3 forward, 3 recomputed, 3 dx a layer
+            assert L.LAUNCHES["gmm_fwd"] == 2 * 9 * cfg.n_layers
+            assert L.LAUNCHES["gmm_dw"] == 2 * 3 * cfg.n_layers
+    for got, want in zip(runs["kernels"], runs["plain"]):
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        assert got["grad_norm"] == pytest.approx(want["grad_norm"],
+                                                 rel=1e-4)
+
+
+def test_mixtral_step_does_not_synchronise(cuda):
+    """A bf16 trainer step of the Mixtral (gmm dispatch) on tokens already
+    on the card reads nothing back to the host."""
+    from metaflow_tpu_torch import training
+
+    mixtral, cfg = _tiny_mixtral(dtype="bfloat16")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 257), generator=cuda,
+                           device="cuda")
+    state, step = training.make_trainer(cfg, mixtral, generator=cuda)
+    step(state, {"tokens": tokens})  # builds and loads the kernels
+    torch.cuda.synchronize()
+    L.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, metrics = step(state, {"tokens": tokens})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert L.LAUNCHES["gmm_fwd"] == 9 * cfg.n_layers
+    assert torch.isfinite(metrics["loss"]).item()

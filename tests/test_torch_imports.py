@@ -30,6 +30,8 @@ def _port_sources():
 
 def test_import_leaves_jax_out():
     code = ("import sys, metaflow_tpu_torch, metaflow_tpu_torch.ops.attention,"
+            " metaflow_tpu_torch.ops.gmm, metaflow_tpu_torch.ops.moe,"
+            " metaflow_tpu_torch.models.mixtral,"
             " metaflow_tpu_torch.training.train_step,"
             " metaflow_tpu_torch.training.metrics;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -93,6 +95,40 @@ def test_entry_points_default_to_cuda():
     assert llama.forward(params, tokens, cfg, device="cpu").shape == \
         (1, 8, cfg.vocab_size)
     state, step = training.make_trainer(cfg, llama, params=params,
+                                        device="cpu")
+    _, metrics = step(state, {"tokens": tokens})
+    assert metrics["loss"].device.type == "cpu"
+
+
+def test_mixtral_entry_points_default_to_cuda():
+    """Mixtral's entry points, called without device=, ask for the card and
+    raise without one; with device="cpu" they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from metaflow_tpu_torch import training
+    from metaflow_tpu_torch.inference import decode
+    from metaflow_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.tiny(moe_dispatch="gmm")
+    params = mixtral.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    tokens = np.zeros((1, 8), np.int64)
+    calls = [
+        lambda: mixtral.init_params(cfg),
+        lambda: mixtral.forward(params, tokens, cfg),
+        lambda: mixtral.from_jax_params({}, cfg),
+        lambda: mixtral.loss_fn(params, {"tokens": tokens}, cfg),
+        lambda: decode.generate(params, tokens, cfg, 2),
+        lambda: training.make_trainer(cfg, mixtral),
+        lambda: training.make_eval_step(cfg, mixtral),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    logits, aux = mixtral.forward(params, tokens, cfg, return_aux=True,
+                                  device="cpu")
+    assert logits.shape == (1, 8, cfg.vocab_size) and aux.ndim == 0
+    state, step = training.make_trainer(cfg, mixtral, params=params,
                                         device="cpu")
     _, metrics = step(state, {"tokens": tokens})
     assert metrics["loss"].device.type == "cpu"

@@ -176,6 +176,32 @@ def test_adamw_step_matches_optax(grad_scale):
         np.testing.assert_allclose(got_nu.numpy(), nu, rtol=1e-6)
 
 
+def test_adamw_update_does_not_depend_on_its_split(monkeypatch):
+    """Large leaves are updated in flat chunks (UPDATE_CHUNK elements) to
+    bound the f32 temporaries; the elementwise update gives bit-identical
+    weights and moments however it is split."""
+    rng = np.random.default_rng(5)
+    tree = {"a": rng.standard_normal((300, 50)).astype(np.float32),
+            "b": rng.standard_normal((77,)).astype(np.float32)}
+    grads = {k: torch.from_numpy(rng.standard_normal(v.shape).astype(
+        np.float32)) for k, v in tree.items()}
+    runs = []
+    for chunk in (port_ts.UPDATE_CHUNK, 1000):
+        monkeypatch.setattr(port_ts, "UPDATE_CHUNK", chunk)
+        opt = port_ts.default_optimizer(lr=1e-2, warmup_steps=0,
+                                        total_steps=10)
+        params = {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+        state = opt.init(params)
+        for _ in range(2):
+            opt.update(params, grads, state)
+        runs.append((params, state))
+    (p0, s0), (p1, s1) = runs
+    for k in tree:
+        assert torch.equal(p0[k], p1[k])
+        assert torch.equal(s0["mu"][k], s1["mu"][k])
+        assert torch.equal(s0["nu"][k], s1["nu"][k])
+
+
 def test_check_opt_state_names_the_mismatch(jax_run):
     params0 = jax_run[0]
     cfg, state, _ = _port_trainer(params0, mu_dtype=torch.bfloat16)
