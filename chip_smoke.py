@@ -45,6 +45,24 @@ Phase 7  trains Mixtral-8x7B at full width, 2 of 32 layers, with
          falling from step 1 to step 4;
          prints step ms, tokens/s, MFU and peak memory; (c) generate()
          serves 2 prompts x 16 new tokens with the trained bf16 model.
+Phase 8  runs ring attention over the sequence axis on a LocalRing (n
+         sequence shards of one device's tensors): (a) holds the ring hop's
+         forward K4 (flash_block_fwd) against its plain version at the cases
+         of ops/fault_check.py's BLOCK_FWD_CASES (shard views, diagonal and
+         full, f32 and bf16, head dims 64 and 128, GQA), bench_1b's 8k hop
+         last, and times K4, the plain version and SDPA's flash forward
+         with its lse (a yardstick only) there; (b) ring_attention on
+         LocalRing(2) and (4) against flash_attention (K1-K3), outputs and
+         gradients; (c) a 2-layer full-width float32 bench_1b on tokens
+         [1, 2049] with LocalRing(4): the loss and every gradient through
+         K4/K2/K3 must equal plain attention's; (d) trains bench_1b with
+         attention_impl="ring" at 8k context, 5 AdamW steps on tokens
+         [2, 8193] with LocalRing(4), each launching K4 320 and K2, K3 160
+         times and K1 never, step 0 profiled, every K4 launch of step 2 held
+         against its plain version, step 0's loss within 5e-3 of the K1
+         model's, the loss falling from step 1 to step 4; (e) the
+         Llama-3-8B forward on tokens [1, 8192] through the ring (320 K4
+         launches) against the K1 forward.
 
 Every run drives every phase, and every phase asserts; the script exits
 non-zero on the first failure, when no CUDA device is present, or when the
@@ -571,7 +589,8 @@ def phase5a_exact_grads(torch, llama, A, L, leaves):
               "grad_excess_by_leaf": excess}
     log(json.dumps(result))
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers, "gmm_fwd": 0, "gmm_dw": 0}
+            "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0,
+            "gmm_fwd": 0, "gmm_dw": 0}
     if launches["auto"] != want or any(launches["xla"].values()):
         raise AssertionError("phase 5a launches %s, expected %s"
                              % (launches, want))
@@ -667,7 +686,8 @@ def phase5b_train(torch, llama, A, L, training):
               "in_model_checks": {n: len(r) for n, r in ratios.items()}}
     log(json.dumps(result))
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-            "flash_bwd_dkv": cfg.n_layers, "gmm_fwd": 0, "gmm_dw": 0}
+            "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0,
+            "gmm_fwd": 0, "gmm_dw": 0}
     for s_ in steps:
         if s_["launches"] != want:
             raise AssertionError("step %d launched %s, expected %s"
@@ -898,7 +918,7 @@ def phase7a_exact_grads(torch, mixtral, L, G, M, leaves):
     log(json.dumps(result))
     L = cfg.n_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
+            "flash_block_fwd": 0, "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
     if runs["kernels"]["launches"] != want or \
             runs["plain"]["launches"]["gmm_fwd"] or \
             runs["plain"]["launches"]["gmm_dw"]:
@@ -953,6 +973,10 @@ def active_params(params, cfg):
 
 
 KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
+    ("K4 flash_block_fwd", ("flash_fwd_bf16_kernel<128, true>",
+                            "flash_fwd_bf16_kernel<64, true>",
+                            "flash_fwd_f32_kernel<128, true>",
+                            "flash_fwd_f32_kernel<64, true>")),
     ("K5 gmm_fwd", ("gmm_fwd_bf16", "gmm_fwd_f32")),
     ("K6 gmm_dw", ("gmm_dw_bf16", "gmm_dw_f32")),
     ("K1-K3 flash", ("flash_fwd", "flash_bwd")),
@@ -1066,7 +1090,7 @@ def phase7b_train(torch, mixtral, L, G, FC, training):
     log(json.dumps(result))
     L = cfg.n_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
-            "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
+            "flash_block_fwd": 0, "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
     for s_ in steps:
         if s_["launches"] != want:
             raise AssertionError("step %d launched %s, expected %s"
@@ -1107,6 +1131,379 @@ def phase7c_generate(torch, decode, params, cfg):
         raise AssertionError("generate returned %s" % out.tolist())
 
 
+RING_HOP = (2, 2048, 16, 8, 128)  # bench_1b's ring hop at 8k: a shard of 4
+
+
+def block_fwd_work(B, S, H, KV, D, dtype_bytes, diag):
+    """(operations, bytes) the least K4 must do on one hop: two products
+    (4*D flop per live (q, k) pair: S(S+1)/2 of them on a diagonal hop,
+    S^2 on a full one); q, k, v read once, the f32 acc and m, l written
+    once."""
+    pairs = S * (S + 1) // 2 if diag else S * S
+    qkv = (B * S * H * D + 2 * B * S * KV * D) * dtype_bytes
+    return 4.0 * B * H * D * pairs, qkv + 4 * B * S * H * D + 8 * B * H * S
+
+
+def block_fwd_limits(A, torch, dt):
+    """K4's limits per reading (FC.block_fwd_case_readings): f32's acc is
+    read in units of 1e-5."""
+    return {"acc": 1.0 if dt == torch.float32 else A.FLASH_BLOCK_ROW_LIMIT,
+            "m": A.FLASH_BLOCK_STATS_LIMIT, "lse": A.FLASH_BLOCK_STATS_LIMIT}
+
+
+def phase8a_block_fwd(A, FC, torch):
+    """K4 against its plain version at every case of FC.BLOCK_FWD_CASES
+    (shard views), then its times at bench_1b's 8k ring hop, diagonal and
+    full, beside the plain version's and SDPA's flash forward with lse.
+    Returns {'diag': record, 'full': record}."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    records = {}
+    for case in FC.BLOCK_FWD_CASES:
+        B, S, H, KV, D, dt, diag = case
+        q, k, v = FC.block_fwd_inputs(case, gen)
+        readings = FC.block_fwd_case_readings(q, k, v, diag)
+        limit = block_fwd_limits(A, torch, dt)
+        row = {"phase": "8a", "shape": [B, S, H, KV, D],
+               "dtype": str(dt).split(".")[-1], "diagonal": diag,
+               "readings": readings, "limit": limit}
+        if not all(readings[key] <= limit[key] for key in limit):
+            log(json.dumps(row))
+            raise AssertionError("K4 disagrees with its plain version: %s"
+                                 % json.dumps(row))
+        if (B, S, H, KV, D) == RING_HOP:
+            key = "diag" if diag else "full"
+            records[key] = time_block_fwd(A, torch, q, k, v, diag)
+            row["times"] = records[key]
+            log("phase 8a: K4 %s hop: %.4f ms, bound %.4f ms (%s), plain "
+                "%.3f ms, SDPA flash fwd + lse %.4f ms" % (
+                    key, records[key]["ms"], records[key]["bound_ms"],
+                    records[key]["bound_by"], records[key]["plain_ms"],
+                    records[key]["library_ms"]))
+        log(json.dumps(row))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
+def time_block_fwd(A, torch, q, k, v, diag):
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    scale = D ** -0.5
+    acc, _, l = A._flash_block_fwd_cuda(q, k, v, scale, diag)
+    r_acc, _, r_l = A._flash_block_fwd_plain(q, k, v, scale, diag)
+    err = (A.flash_block_output(acc, l) - A.flash_block_output(
+        r_acc, r_l)).abs().max().item()
+    del acc, l, r_acc, r_l
+    # SDPA's flash forward on [B, H, S, D] with the kv heads repeated,
+    # returning O and its lse: what the ring's merge needs of a hop
+    q_t = q.transpose(1, 2).contiguous()
+    k_t, v_t = (A._broadcast_gqa(t, H).transpose(1, 2).contiguous()
+                for t in (k, v))
+    work = block_fwd_work(B, S, H, KV, D, 2, diag)
+    bound, by = bound_ms(work, tensor_cores=True)
+    return {
+        "ms": cuda_ms(lambda: A._flash_block_fwd_cuda(q, k, v, scale, diag),
+                      20),
+        "plain_ms": cuda_ms(
+            lambda: A._flash_block_fwd_plain(q, k, v, scale, diag), 3),
+        "library_ms": cuda_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                q_t, k_t, v_t, 0.0, diag, False, scale=scale), 20),
+        "bound_ms": bound, "bound_by": by, "gflop": work[0] / 1e9,
+        "gbytes": work[1] / 1e9, "max_abs_err": err}
+
+
+def _grads(torch, fn, leaves, g):
+    """fn's output and the gradients of <fn(*leaves), g>."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*leaves)
+    out.backward(g)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def phase8b_ring_vs_flash(A, R, L, torch):
+    """ring_attention on LocalRing(2) and (4) against flash_attention
+    (K1-K3) on the same whole-sequence tensors, output and gradients:
+    f32 within the JAX ring tests' tolerances (atol 2e-5 / rtol 2e-4
+    forward, atol 1e-5 / rtol 1e-3 gradients), bf16 row by row
+    (FLASH_BF16_ROW_LIMIT for the output, FLASH_BWD_ROW_LIMIT for the
+    gradients)."""
+    cases = [  # (n, B, S, H, KV, D, dtype, causal)
+        (2, 1, 1024, 8, 8, 128, torch.float32, True),
+        (4, 1, 1024, 8, 2, 128, torch.float32, True),
+        (4, 1, 1024, 4, 4, 64, torch.float32, False),
+        (2, 2, 2048, 16, 8, 128, torch.bfloat16, True),
+        (4, 1, 2048, 8, 8, 128, torch.bfloat16, False),
+        (4, 2, 8192, 16, 8, 128, torch.bfloat16, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for n, B, S, H, KV, D, dt, causal in cases:
+        leaves = [torch.randn(B, S, h, D, generator=gen, device="cuda").to(dt)
+                  for h in (H, KV, KV)]
+        g = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+        L.reset_launch_counts()
+        got = _grads(torch, lambda a, b, c: R.ring_attention(
+            a, b, c, R.LocalRing(n), causal=causal, impl="flash"), leaves, g)
+        torch.cuda.synchronize()
+        launches = dict(L.LAUNCHES)
+        want = _grads(torch, lambda a, b, c: A.flash_attention(
+            a, b, c, causal=causal), leaves, g)
+        torch.cuda.synchronize()
+        row = {"phase": "8b", "ring": n, "shape": [B, S, H, KV, D],
+               "dtype": str(dt).split(".")[-1], "causal": causal,
+               "launches": {k: v for k, v in launches.items() if v}}
+        ok = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            if dt == torch.float32:
+                atol, rtol = (2e-5, 2e-4) if name == "out" else (1e-5, 1e-3)
+                row[name] = ((a - b).abs() / (atol + rtol * b.abs())).max(
+                ).item()
+                ok = ok and row[name] <= 1.0
+            else:
+                row[name] = A.flash_out_error(a, b)
+                ok = ok and row[name] <= (A.FLASH_BF16_ROW_LIMIT
+                                          if name == "out"
+                                          else A.FLASH_BWD_ROW_LIMIT)
+        hops = n * (n + 1) // 2 if causal else n * n
+        ok = ok and (launches["flash_block_fwd"], launches["flash_bwd_dq"],
+                     launches["flash_bwd_dkv"], launches["flash_fwd"]) == (
+                         hops, hops, hops, 0)
+        log(json.dumps(row))
+        if not ok:
+            raise AssertionError("the ring disagrees with the flash path: %s"
+                                 % json.dumps(row))
+        del leaves, g, got, want
+    torch.cuda.empty_cache()
+
+
+def phase8c_ring_exact_grads(torch, llama, R, L, leaves):
+    """A 2-layer full-width bench_1b in float32 with LocalRing(4): the loss
+    and its gradients through the ring (K4, K2, K3) against plain
+    attention's."""
+    cfg = llama.LlamaConfig.bench_1b(n_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    params = llama.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2049), generator=gen,
+                           device="cuda")
+    grads, losses, launches = {}, {}, {}
+    for impl, mesh in (("ring", R.LocalRing(4)), ("xla", None)):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        p = _leaf_params(torch, params)
+        L.reset_launch_counts()
+        loss = llama.loss_fn(p, {"tokens": tokens}, c, mesh=mesh)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[impl] = dict(L.LAUNCHES)
+        losses[impl] = loss.item()
+        grads[impl] = {"/".join(path): t.grad for path, t in leaves(p)}
+    excess = {name: _f32_excess(grads["ring"][name], grads["xla"][name])
+              for name in grads["ring"]}
+    result = {"phase": "8c", "layers": cfg.n_layers, "tokens": [1, 2049],
+              "ring": 4, "loss_ring": losses["ring"],
+              "loss_plain": losses["xla"], "launches_ring": launches["ring"],
+              "grad_excess_max": max(excess.values()),
+              "grad_excess_by_leaf": excess}
+    log(json.dumps(result))
+    n = cfg.n_layers
+    want = {"flash_fwd": 0, "flash_bwd_dq": 10 * n, "flash_bwd_dkv": 10 * n,
+            "flash_block_fwd": 2 * 10 * n, "gmm_fwd": 0, "gmm_dw": 0}
+    if launches["ring"] != want or any(launches["xla"].values()):
+        raise AssertionError("phase 8c launches %s, expected %s"
+                             % (launches, want))
+    if abs(losses["ring"] - losses["xla"]) > 1e-5 * abs(losses["xla"]) or \
+            max(excess.values()) > 1.0:
+        raise AssertionError("f32 loss or gradients through the ring "
+                             "disagree with plain attention: %s"
+                             % json.dumps(result))
+
+
+def checked_block_fwd(A, run):
+    """run() with every K4 launch held against its plain version on the
+    same inputs; returns (run's result, each launch's largest reading over
+    its limit)."""
+    ratios, launch = [], A._flash_block_fwd_cuda
+
+    def checked(q, k, v, scale, diag):
+        out = launch(q, k, v, scale, diag)
+        r = A.flash_block_readings(
+            *out, A._flash_block_fwd_plain(q, k, v, scale, diag))
+        ratios.append(max(r["acc"] / A.FLASH_BLOCK_ROW_LIMIT,
+                          r["m"] / A.FLASH_BLOCK_STATS_LIMIT,
+                          r["lse"] / A.FLASH_BLOCK_STATS_LIMIT))
+        return out
+
+    A._flash_block_fwd_cuda = checked
+    try:
+        result = run()
+    finally:
+        A._flash_block_fwd_cuda = launch
+    return result, ratios
+
+
+def phase8d_train_ring(torch, llama, A, R, L, training):
+    """bench_1b in bf16 at full width and depth, at 8k context with ring
+    attention on LocalRing(4): 5 trainer steps on one fixed batch of tokens
+    [2, 8193]. Returns (the launches of the run, its result)."""
+    S, B, n = 8192, 2, 4
+    cfg = llama.LlamaConfig.bench_1b(attention_impl="ring", max_seq_len=S)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device="cuda")}
+    with torch.no_grad():  # the same model's step-0 loss through K1
+        L.reset_launch_counts()
+        k1_loss = llama.loss_fn(params, batch, dataclasses.replace(
+            cfg, attention_impl="auto")).item()
+        k1_launches = L.LAUNCHES["flash_fwd"]
+    mesh = R.LocalRing(n)
+    state, step = training.make_trainer(
+        cfg, llama, optimizer=training.default_optimizer(
+            warmup_steps=1, total_steps=10), params=params, mesh=mesh)
+    torch.cuda.synchronize()
+    log("phase 8d: bench_1b bf16 params %.3fB, depth %d of %d, tokens "
+        "[%d, %d], %r, init %.1fs" % (n_params / 1e9, cfg.n_layers,
+                                      cfg.n_layers, B, S + 1, mesh,
+                                      time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    steps, ratios, profile = [], None, None
+    L.reset_launch_counts()
+    for i in range(5):
+        before = dict(L.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 0:  # outside the median: the profiler slows the host
+            (state, m), profile = profiled(torch, lambda: step(state, batch))
+        elif i == 2:
+            (state, m), ratios = checked_block_fwd(
+                A, lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        steps.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
+                      "loss": loss, "grad_norm": norm,
+                      "launches": {k: L.LAUNCHES[k] - before[k]
+                                   for k in L.LAUNCHES}})
+    launches = dict(L.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = statistics.median(s_["ms"] for s_ in steps
+                                if s_["step"] in (1, 3, 4))
+    tokens_per_s = B * S / step_ms * 1e3
+    fpt = training.flops_per_token_dense(n_params, cfg.n_layers, cfg.dim, S)
+    peak = training.peak_tflops(torch.cuda.get_device_name(0))
+    if peak is None:
+        raise AssertionError("no peak rate for %s"
+                             % torch.cuda.get_device_name(0))
+    result = {"phase": "8d", "steps": steps, "step_ms": step_ms,
+              "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+              "peak_tflops": peak, "mfu": tokens_per_s * fpt / (peak * 1e12),
+              "peak_mem_gb": peak_gb, "launches": launches,
+              "k1_step0_loss": k1_loss, "k1_launches": k1_launches,
+              "in_model_k4_reading_over_limit": max(ratios),
+              "in_model_k4_checks": len(ratios),
+              "profile_step_0": profile}
+    log(json.dumps(result))
+    n_l = cfg.n_layers
+    want = {"flash_fwd": 0, "flash_bwd_dq": 10 * n_l,
+            "flash_bwd_dkv": 10 * n_l, "flash_block_fwd": 2 * 10 * n_l,
+            "gmm_fwd": 0, "gmm_dw": 0}
+    for s_ in steps:
+        if s_["launches"] != want:
+            raise AssertionError("step %d launched %s, expected %s"
+                                 % (s_["step"], s_["launches"], want))
+    if len(ratios) != 2 * 10 * n_l or max(ratios) > 1.0:
+        raise AssertionError("K4 off its plain version inside the model: "
+                             "%s" % ratios)
+    losses = [s_["loss"] for s_ in steps]
+    if not all(map(lambda x: x == x and abs(x) < 1e4, losses)):
+        raise AssertionError("non-finite losses %s" % losses)
+    if abs(losses[0] - losses[1]) > 1e-5 * abs(losses[0]) or \
+            not losses[4] < losses[1]:
+        raise AssertionError("the loss must hold at step 1 (lr 0 on the "
+                             "first update) and fall to step 4: %s" % losses)
+    # the JAX dry run's bound between its ring and single-mesh losses
+    if k1_launches != n_l or abs(losses[0] - k1_loss) > 5e-3:
+        raise AssertionError("step 0's ring loss %.6f is not within 5e-3 of "
+                             "the K1 model's %.6f" % (losses[0], k1_loss))
+    return launches, result
+
+
+def phase8e_prefill_ring(torch, llama, A, R, L):
+    """The Llama-3-8B forward at full width and depth in bf16 on tokens
+    [1, 8192] through the ring on LocalRing(4), against the K1 forward on
+    the same tokens and weights: 320 K4 launches, every one held against
+    its plain version, and the logits within phase 2's end-to-end bound
+    (top-1 agreement and largest relative difference against K1's, no
+    farther than K1 from plain attention plus 0.02, twice its relative
+    difference)."""
+    cfg = llama.LlamaConfig.llama3_8b(attention_impl="ring")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    log("phase 8e: llama3_8b bf16 params %.2fB, init %.1fs"
+        % (llama.num_params(params) / 1e9, time.perf_counter() - t0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen,
+                           device="cuda")
+    mesh = R.LocalRing(4)
+
+    def run(impl, ring):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = llama.forward(params, tokens, c, mesh=ring)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t) * 1e3
+
+    def compare(a, b):
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        return agree, rel
+
+    with torch.no_grad():
+        L.reset_launch_counts()
+        ring_logits, first_ms = run("ring", mesh)
+        launches = dict(L.LAUNCHES)
+        _, ring_ms = run("ring", mesh)
+        k1_logits, _ = run("auto", None)
+        _, k1_ms = run("auto", None)
+        agree, rel = compare(ring_logits, k1_logits)
+        finite = bool(torch.isfinite(ring_logits).all())
+        del ring_logits
+        _, ratios = checked_block_fwd(A, lambda: run("ring", mesh))
+        plain_logits, plain_ms = run("xla", None)
+        floor_agree, floor_rel = compare(k1_logits, plain_logits)
+        del plain_logits, k1_logits
+    n_tok = tokens.numel()
+    result = {"phase": "8e", "tokens": [1, 8192], "ring": 4,
+              "launches": {k: v for k, v in launches.items() if v},
+              "forward_ms": ring_ms, "first_forward_ms": first_ms,
+              "tokens_per_s": n_tok / ring_ms * 1e3,
+              "k1_forward_ms": k1_ms, "k1_tokens_per_s": n_tok / k1_ms * 1e3,
+              "plain_forward_ms": plain_ms,
+              "top1_agree_ring_vs_k1": agree,
+              "max_rel_logit_diff_ring_vs_k1": rel,
+              "top1_agree_k1_vs_plain": floor_agree,
+              "max_rel_logit_diff_k1_vs_plain": floor_rel,
+              "in_model_k4_reading_over_limit": max(ratios),
+              "in_model_k4_checks": len(ratios)}
+    log(json.dumps(result))
+    if launches["flash_block_fwd"] != 10 * cfg.n_layers or \
+            launches["flash_fwd"] or not finite:
+        raise AssertionError("the 8k ring prefill launched %s, expected "
+                             "K4 %d times" % (launches, 10 * cfg.n_layers))
+    if len(ratios) != 10 * cfg.n_layers or max(ratios) > 1.0:
+        raise AssertionError("K4 off its plain version inside the model: "
+                             "%s" % ratios)
+    if agree < floor_agree - 0.02 or rel > 2 * floor_rel:
+        raise AssertionError("ring and K1 forwards disagree beyond the "
+                             "rounding floor: %s" % json.dumps(result))
+    del params
+    return launches, result
+
+
 def main():
     import torch
 
@@ -1130,6 +1527,7 @@ def main():
     L = importlib.import_module("metaflow_tpu_torch.ops.launches")
     G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
     M = importlib.import_module("metaflow_tpu_torch.ops.moe")
+    R = importlib.import_module("metaflow_tpu_torch.ops.ring_attention")
     start = time.perf_counter()
 
     # phase 0: the card, the builds, the numerics settings
@@ -1185,12 +1583,32 @@ def main():
     log("phase 7b done at %.1fs" % (time.perf_counter() - start))
     phase7c_generate(torch, decode, moe_params, moe_cfg)
     log("phase 7c done at %.1fs" % (time.perf_counter() - start))
+    del moe_params  # the Mixtral weights: the ring phases need the memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    block_records = phase8a_block_fwd(A, FC, torch)
+    log("phase 8a done at %.1fs" % (time.perf_counter() - start))
+    phase8b_ring_vs_flash(A, R, L, torch)
+    log("phase 8b done at %.1fs" % (time.perf_counter() - start))
+    phase8c_ring_exact_grads(torch, llama, R, L, leaves)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 8c done at %.1fs" % (time.perf_counter() - start))
+    ring_launches, _ = phase8d_train_ring(torch, llama, A, R, L, training)
+    gc.collect()  # bench_1b's state: the 8B prefill needs the memory
+    torch.cuda.empty_cache()
+    log("phase 8d done at %.1fs" % (time.perf_counter() - start))
+    prefill_launches, _ = phase8e_prefill_ring(torch, llama, A, R, L)
+    log("phase 8e done at %.1fs" % (time.perf_counter() - start))
 
     # one line per kernel: the flash kernels' launches in the bench_1b run
     # (phase 5b) and times at its training shape (phase 4), K1 also at the
-    # inference shape (phases 1, 2); K5 and K6's launches in the Mixtral
-    # run (phase 7b) and times at its gate/up shape (phase 6), with the
-    # down shape and K5's dx beside them
+    # inference shape (phases 1, 2), K2 and K3 also their launches in the
+    # 8k ring run (phase 8d); K4's launches in the 8k ring run (phase 8d)
+    # and times at its diagonal hop (phase 8a), with the full hop beside
+    # them; K5 and K6's launches in the Mixtral run (phase 7b) and times at
+    # its gate/up shape (phase 6), with the down shape and K5's dx beside
+    # them
     ported, not_yet = [], []
     for k in KERNELS:
         if k.get("source") is None:
@@ -1200,6 +1618,24 @@ def main():
         line = {"name": k["name"], "route": k["route"],
                 "source": k["source"], "replaces": k["replaces"],
                 "status": "ported"}
+        if k["name"] == "flash_block_fwd":
+            diag, full = block_records["diag"], block_records["full"]
+            line.update(
+                launches=ring_launches["flash_block_fwd"],
+                max_abs_err=max(diag["max_abs_err"], full["max_abs_err"]),
+                ms=diag["ms"], plain_ms=diag["plain_ms"],
+                bound_ms=diag["bound_ms"], bound_by=diag["bound_by"],
+                library_ms=diag["library_ms"],
+                library="SDPA flash forward with its lse, kv heads repeated",
+                shape="ring hop B, S, H, KV, D = %s bf16, diagonal (acc f32)"
+                      % (RING_HOP,),
+                full_ms=full["ms"], full_plain_ms=full["plain_ms"],
+                full_bound_ms=full["bound_ms"],
+                full_library_ms=full["library_ms"],
+                launches_llama3_8b_8k_prefill=prefill_launches[
+                    "flash_block_fwd"])
+            ported.append(line)
+            continue
         if k["name"].startswith("gmm"):
             up, down = gmm_records["gate_up"], gmm_records["down"]
             shape = ("16384 routed rows (17408 padded) in 8 groups, "
@@ -1247,6 +1683,7 @@ def main():
         else:
             line["library"] = "SDPA backward: dq, dk, dv together"
             line["plain"] = "the plain backward: dq, dk, dv together"
+            line["launches_ring_8k_step"] = ring_launches[k["name"]] // 5
         ported.append(line)
     log(card_line())
     log(json.dumps({"kernels": ported, "not_yet_ported": not_yet}))

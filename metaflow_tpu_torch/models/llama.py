@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention
 from ..ops.matmul import matmul_f32
 from ..ops.norms import rms_norm
+from ..ops.ring_attention import LocalRing, ring_attention
 from ..ops.rope import apply_rope, rope_frequencies
 
 
@@ -170,7 +171,28 @@ def layer_params(params, i):
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _layer(cfg, cos, sin, x, lp):
+def _sequence_attention(cfg, q, k, v, mesh):
+    """attention_impl 'ring' over the mesh's 'sequence' axis. The model
+    runs global arrays, so the mesh is a LocalRing: the shards of one
+    sequence on this device, as the JAX model's global arrays are sharded
+    only inside its attention."""
+    if cfg.attention_impl == "ulysses":
+        raise NotImplementedError(
+            "attention_impl='ulysses' (all-to-all sequence parallelism) is "
+            "not ported yet (ROADMAP.md, slice 3: Ulysses)")
+    if mesh is None or "sequence" not in getattr(mesh, "axis_names", ()):
+        raise ValueError(
+            "attention_impl=%r needs a mesh with a 'sequence' axis passed "
+            "to forward/loss_fn" % cfg.attention_impl)
+    if not isinstance(mesh, LocalRing):
+        raise NotImplementedError(
+            "the model runs whole sequences; a ring of one shard per "
+            "process (%r) needs positions and the loss per shard "
+            "(ROADMAP.md, slice 5)" % (mesh,))
+    return ring_attention(q, k, v, mesh, causal=True)
+
+
+def _layer(cfg, cos, sin, x, lp, mesh=None):
     """One transformer block; x: [B, S, D]."""
     B, S, _ = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -181,10 +203,9 @@ def _layer(cfg, cos, sin, x, lp):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "attention_impl=%r (sequence parallelism) is not ported yet"
-            % cfg.attention_impl)
-    attn = attention(q, k, v, causal=True, impl=cfg.attention_impl)
+        attn = _sequence_attention(cfg, q, k, v, mesh)
+    else:
+        attn = attention(q, k, v, causal=True, impl=cfg.attention_impl)
     x = x + attn.reshape(B, S, H * Hd) @ lp["wo"]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     gate = F.silu(h @ lp["w_gate"])
@@ -205,10 +226,11 @@ def _remat(fn, *args):
     return fn(*args)
 
 
-def hidden_states(params, tokens, cfg, device="cuda"):
+def hidden_states(params, tokens, cfg, device="cuda", mesh=None):
     """tokens: [B, S] int → final-norm hidden states [B, S, D] (model
     dtype). With cfg.remat each layer's intermediates are recomputed in the
-    backward pass."""
+    backward pass. `mesh` (a LocalRing) is needed only by
+    attention_impl='ring'."""
     device = resolve_device(device)
     check_params_device(params, device)
     if cfg.remat and cfg.remat_policy is not None:
@@ -224,15 +246,16 @@ def hidden_states(params, tokens, cfg, device="cuda"):
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cfg.remat:
-            x = _remat(_layer, cfg, cos, sin, x, lp)
+            x = _remat(_layer, cfg, cos, sin, x, lp, mesh)
         else:
-            x = _layer(cfg, cos, sin, x, lp)
+            x = _layer(cfg, cos, sin, x, lp, mesh)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def forward(params, tokens, cfg, device="cuda"):
-    """tokens: [B, S] int → logits [B, S, vocab] (float32)."""
-    x = hidden_states(params, tokens, cfg, device=device)
+def forward(params, tokens, cfg, device="cuda", mesh=None):
+    """tokens: [B, S] int → logits [B, S, vocab] (float32). `mesh` is
+    needed only by attention_impl='ring'."""
+    x = hidden_states(params, tokens, cfg, device=device, mesh=mesh)
     return matmul_f32(x, params["lm_head"])
 
 
@@ -249,7 +272,7 @@ def _ce_sums(x, lm_head, targets, mask):
     return (nll * mask).sum(), mask.sum()
 
 
-def loss_fn(params, batch, cfg, device="cuda"):
+def loss_fn(params, batch, cfg, device="cuda", mesh=None):
     """Next-token cross-entropy; batch: {'tokens': [B, S+1]} or
     {'inputs': [B, S], 'targets': [B, S]} (+ optional 'mask'), numpy arrays
     or tensors.
@@ -259,7 +282,8 @@ def loss_fn(params, batch, cfg, device="cuda"):
     recomputed in the backward pass, so peak activation memory is
     [B, chunk, vocab] f32 instead of [B, S, vocab] in both passes. An
     off-size sequence snaps the chunk to the largest divisor of S that fits
-    the bound (below 32, unchunked), as the JAX package does."""
+    the bound (below 32, unchunked), as the JAX package does. `mesh` is
+    needed only by attention_impl='ring'."""
     device = resolve_device(device)
     if "tokens" in batch:
         tokens = _tokens_on(batch["tokens"], device)
@@ -270,7 +294,7 @@ def loss_fn(params, batch, cfg, device="cuda"):
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=device)
-    x = hidden_states(params, inputs, cfg, device=device)
+    x = hidden_states(params, inputs, cfg, device=device, mesh=mesh)
 
     S = x.shape[1]
     chunk = cfg.loss_chunk

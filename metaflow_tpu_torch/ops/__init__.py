@@ -1,8 +1,9 @@
 from .norms import rms_norm, layer_norm
 from .rope import rope_frequencies, apply_rope
 from .attention import (attention, flash_attention, flash_block_bwd,
-                        reference_attention)
+                        flash_block_fwd, reference_attention)
 from .gmm import gather_rows, gmm, make_group_layout, scatter_rows
+from .ring_attention import LocalRing, ProcessGroupRing, ring_attention
 
 __all__ = [
     "rms_norm",
@@ -12,6 +13,10 @@ __all__ = [
     "attention",
     "flash_attention",
     "flash_block_bwd",
+    "flash_block_fwd",
+    "ring_attention",
+    "LocalRing",
+    "ProcessGroupRing",
     "reference_attention",
     "gmm",
     "make_group_layout",
@@ -32,7 +37,8 @@ KERNELS = [
      "replaces": "metaflow_tpu/ops/attention.py:247",
      "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_bwd.cu"},
     {"name": "flash_block_fwd",
-     "replaces": "metaflow_tpu/ops/attention.py:395"},
+     "replaces": "metaflow_tpu/ops/attention.py:395",
+     "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/flash_fwd.cu"},
     {"name": "gmm_fwd", "replaces": "metaflow_tpu/ops/gmm.py:149",
      "route": "cuda", "source": "metaflow_tpu_torch/ops/csrc/gmm.cu"},
     {"name": "gmm_dw", "replaces": "metaflow_tpu/ops/gmm.py:200",

@@ -1,4 +1,4 @@
-"""Attention: the plain PyTorch path and the flash kernels K1, K2, K3.
+"""Attention: the plain PyTorch path and the flash kernels K1, K2, K3, K4.
 
 `attention(q, k, v, causal=..., impl='auto')` takes [B, S, H, D] queries
 and [B, S, KV, D] keys/values (KV may divide H). The flash path is a
@@ -7,8 +7,12 @@ hand-written Hopper kernel K1 of csrc/flash_fwd.cu (replacing the TPU kernel
 `_flash_fwd_kernel`), its backward the kernels K2 (dq) and K3 (dk, dv) of
 csrc/flash_bwd.cu (replacing `_flash_bwd_dq_kernel` and
 `_flash_bwd_dkv_kernel`), which recompute the probabilities from the saved
-lse. Each kernel's plain PyTorch version sits beside it: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel or raises.
+lse. `flash_block_fwd` and `flash_block_bwd` are one ring-attention hop's
+forward and backward (ops/ring_attention.py): the forward is the kernel K4
+of csrc/flash_fwd.cu (replacing `_flash_block_fwd_kernel`), K1's loop
+without the normalization, the backward K2 and K3 given the global lse.
+Each kernel's plain PyTorch version sits beside it: a CPU tensor takes the
+plain version, a CUDA tensor launches the kernel or raises.
 """
 
 import ctypes
@@ -175,6 +179,123 @@ def _flash_forward(q, k, v, causal, scale):
     if q.device.type == "cpu":
         return _flash_forward_plain(q, k, v, causal, scale)
     return _flash_forward_cuda(q, k, v, causal, scale)
+
+
+# ---------------------------------------------------------------------------
+# K4: one ring hop's flash forward, unnormalized
+# ---------------------------------------------------------------------------
+
+
+def _flash_block_fwd_plain(q, k, v, scale, causal_diag):
+    """The plain version of K4: K1's plain version without the
+    normalization. f32 scores scaled after the product, probabilities
+    rounded to the input dtype before P.V, f32 sums. Returns (acc
+    [B, S, H, D] f32, m and l [B*H, S] f32) with m the row max in
+    natural-log units and l = sum exp(s - m)."""
+    B, S, H, D = q.shape
+    k = _broadcast_gqa(k, H)
+    v = _broadcast_gqa(v, H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal_diag:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return acc, m.reshape(B * H, S), l.reshape(B * H, S)
+
+
+# How far K4's output may stray from its plain version: acc / l (the hop's
+# own normalized output) in flash_out_error's unit, as K1's O, and m and
+# lse = m + log l in flash_stats_error's. acc / l is held as K1's O is: the
+# two sides round the probabilities to bf16 at different running maxima.
+# m is a max of f32 scores (the kernel keeps it in log2 units and converts
+# once), lse an f32 sum over up to S keys, so both are held to
+# flash_stats_error's f32 rounding unit. On an H100 the sound kernel reads
+# at most 1.22 on acc / l and 0.021 on m and lse (chip_smoke.py's phase-8a
+# cases); faults planted by ops/fault_check.py flash_block_fwd read 7.6
+# (the probabilities at 4 mantissa bits) to 722 on acc / l, and 105 (the
+# same fault's lse) to 7e4 on m or lse (m left in log2 units: 2.9e4).
+FLASH_BLOCK_ROW_LIMIT = 4.0
+FLASH_BLOCK_STATS_LIMIT = 1.0
+
+
+def flash_stats_error(got, want):
+    """max |got - want| of a [B*H, S] row statistic (m or lse) over
+    S * 2^-24 * max|want| + 1e-6: the f32 rounding of a sum over S terms
+    of that size. K1's lse check uses the same unit."""
+    S = want.shape[-1]
+    unit = S * 2.0 ** -24 * want.abs().max().item() + 1e-6
+    return (got - want).abs().max().item() / unit
+
+
+def per_row(stat, B, H):
+    """A [B*H, S] row statistic as [B, S, H, 1], to scale [B, S, H, D]."""
+    return stat.reshape(B, H, -1).transpose(1, 2).unsqueeze(-1)
+
+
+def flash_block_output(acc, l):
+    """acc / l: a K4 output's (or merged ring sums') normalized attention
+    output, f32 [B, S, H, D]."""
+    B, _, H, _ = acc.shape
+    return acc / per_row(l, B, H)
+
+
+def flash_block_readings(acc, m, l, ref):
+    """K4's output (acc, m, l) against its plain version's (ref): {'acc':
+    acc / l in flash_out_error's unit, 'm', 'lse': flash_stats_error}."""
+    ref_acc, ref_m, ref_l = ref
+    return {"acc": flash_out_error(flash_block_output(acc, l),
+                                   flash_block_output(ref_acc, ref_l)),
+            "m": flash_stats_error(m, ref_m),
+            "lse": flash_stats_error(m + torch.log(l),
+                                     ref_m + torch.log(ref_l))}
+
+
+def _flash_block_fwd_cuda(q, k, v, scale, causal_diag):
+    """Launch K4 on the card. Same contract as _flash_block_fwd_plain."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    _check_kernel_inputs(q, k, v)
+    lib = _build.load("flash_fwd")
+    fn = lib.flash_block_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    acc = torch.empty(B, S, H, D, dtype=torch.float32, device=q.device)
+    m = torch.empty(B * H, S, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+             m.data_ptr(), l.data_ptr(), B, S, H, KV, D,
+             1 if q.dtype == torch.bfloat16 else 0,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *acc.stride()[:3], float(scale), int(bool(causal_diag)),
+             _build.device_index(q), stream)
+    if err != 0:
+        raise RuntimeError("flash_block_fwd kernel launch failed: CUDA "
+                           "error %d" % err)
+    LAUNCHES["flash_block_fwd"] += 1
+    return acc, m, l
+
+
+def flash_block_fwd(q, k, v, scale, causal_diag):
+    """One ring hop's unnormalized contribution: q [B, S, H, D], k, v
+    [B, S, KV, D] (a shard each; views of the whole sequence are read in
+    place). Returns (acc [B, S, H, D] f32, m [B*H, S] f32 in natural-log
+    units, l [B*H, S] f32). causal_diag=True is the same-shard diagonal
+    mask, False lets every key count. A CPU tensor takes the plain version;
+    any other device launches K4 or raises."""
+    _check_blocks(q.shape[1])
+    if q.shape[2] % k.shape[2]:
+        raise ValueError("kv heads (%d) must divide q heads (%d)"
+                         % (k.shape[2], q.shape[2]))
+    if q.device.type == "cpu":
+        return _flash_block_fwd_plain(q, k, v, scale, causal_diag)
+    return _flash_block_fwd_cuda(q, k, v, scale, causal_diag)
 
 
 # ---------------------------------------------------------------------------

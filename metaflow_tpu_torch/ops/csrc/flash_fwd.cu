@@ -1,22 +1,36 @@
 // Flash attention forward for Hopper (sm_90a): online-softmax attention
-// that never writes the S x S score matrix to device memory.
+// that never writes the S x S score matrix to device memory. One source,
+// two kernels of the JAX package:
 //
-// Replaces the TPU kernel `_flash_fwd_kernel` of
-// metaflow_tpu/ops/attention.py (launched by `_flash_forward`). It computes
-// the same function: bf16 (or f32) operands, f32 scores scaled after the
-// product, causal mask q_pos >= k_pos, running max / denominator /
-// accumulator in f32, probabilities rounded to the operand dtype before the
-// P.V product, O written in the input dtype and lse = m + log(l) in f32.
-// It reads q [B, S, H, D] and k, v [B, S, KV, D] through their strides
-// (kv head h / (H / KV), no GQA repeat and no head fold copy), writes O
-// as [B, S, H, D] and lse as [B*H, S] (no TPU sublane padding).
+// K1 replaces `_flash_fwd_kernel` of metaflow_tpu/ops/attention.py
+// (launched by `_flash_forward`). It computes the same function: bf16 (or
+// f32) operands, f32 scores scaled after the product, causal mask
+// q_pos >= k_pos, running max / denominator / accumulator in f32,
+// probabilities rounded to the operand dtype before the P.V product, O
+// written in the input dtype and lse = m + log(l) in f32.
 //
-// Bound at the main-path shape (B=2, S=2048, H=32, KV=8, D=128, bf16,
+// K4 replaces `_flash_block_fwd_kernel` (launched by `flash_block_fwd`),
+// one hop of ring attention: the same loop WITHOUT the final
+// normalization. It writes the f32 accumulator as it stands and the
+// running max m and denominator l in natural-log units (m = max s,
+// l = sum exp(s - m)), which the ring merges across hops; `causal` is then
+// the same-shard diagonal mask, and a hop from an earlier shard runs every
+// key tile. K4 is K1's body under a template flag (kBlock): only the
+// epilogue differs.
+//
+// Both read q [B, S, H, D] and k, v [B, S, KV, D] through their strides
+// (kv head h / (H / KV), no GQA repeat and no head fold copy; ring shards
+// are views of the whole sequence), write O or acc as [B, S, H, D] and the
+// row stats as [B*H, S] (no TPU sublane padding).
+//
+// Bounds. K1 at the main-path shape (B=2, S=2048, H=32, KV=8, D=128, bf16,
 // causal): the two products cost 4*B*H*D*S(S+1)/2 = 68.7 GFLOP, which is
 // 69 us at the card's 989 TFLOP/s dense bf16; the bytes (q, k, v read once,
-// o written once, lse) are about 84 MB, 25 us at 3.35 TB/s. So the kernel
-// is bound by operations, and the main path launches it once per layer
-// (32 times per Llama-3-8B forward).
+// o written once, lse) are about 84 MB, 25 us at 3.35 TB/s. K4 at the ring
+// hop of bench_1b at 8k context (B=2, S=2048 a shard, H=16, KV=8, D=128):
+// 34.4 GFLOP on a diagonal hop and 68.7 on a full one (35 and 69 us)
+// against about 67 MB (q, k, v, the f32 acc: 20 us). Both are bound by
+// operations.
 //
 // What the design does about that bound: both products run on the tensor
 // cores (mma.sync m16n8k16 bf16 -> f32, operands fetched with ldmatrix);
@@ -43,8 +57,9 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
-  float* lse;
+  void* o;      // K1: O in the input dtype; K4: the f32 accumulator
+  float* lse;   // K1: lse; K4: the running max m
+  float* l;     // K4: the denominator l (unused by K1)
   int S, H, KV;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -63,7 +78,7 @@ constexpr int BN = 64;      // keys per K/V tile
 constexpr int NTHREADS = 128;
 
 // Fragment layouts: see tile_mma.cuh.
-template <int D>
+template <int D, bool kBlock>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_bf16_kernel(Params p) {
   constexpr int LD = D + PAD;
@@ -232,6 +247,33 @@ __global__ void __launch_bounds__(NTHREADS)
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
   }
+  if constexpr (kBlock) {
+    // K4: the accumulator unnormalized in f32, m back in natural-log units
+    // (the loop keeps it in log2 units), l to match it
+    float* ag = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + t4 * 2;
+      if (row_a < S)
+        *reinterpret_cast<float2*>(ag + row_a * p.o_ss + col) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (row_b < S)
+        *reinterpret_cast<float2*>(ag + row_b * p.o_ss + col) =
+            make_float2(acc[n][2], acc[n][3]);
+    }
+    if (t4 == 0) {
+      const long long base = static_cast<long long>(bh) * S;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = i ? row_b : row_a;
+        if (row < S) {
+          p.lse[base + row] = m_r[i] * kLn2;
+          p.l[base + row] = l_r[i];
+        }
+      }
+    }
+    return;
+  }
   __nv_bfloat16* og =
       static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -258,7 +300,7 @@ __global__ void __launch_bounds__(NTHREADS)
 constexpr int F32_ROWS = 8;   // q rows (warps) per block
 constexpr int F32_KEYS = 32;  // keys per tile: one per lane when scoring
 
-template <int D>
+template <int D, bool kBlock>
 __global__ void __launch_bounds__(F32_ROWS * 32)
     flash_fwd_f32_kernel(Params p) {
   constexpr int DPL = D / 32;  // output columns per lane
@@ -325,36 +367,62 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
   }
   if (row < S) {
     float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+    const long long at = static_cast<long long>(bh) * S + row;
+    if constexpr (kBlock) {  // K4: acc unnormalized, m and l as they stand
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) og[lane + 32 * i] = acc[i] / l;
-    if (lane == 0) p.lse[static_cast<long long>(bh) * S + row] = m + logf(l);
+      for (int i = 0; i < DPL; ++i) og[lane + 32 * i] = acc[i];
+      if (lane == 0) {
+        p.lse[at] = m;
+        p.l[at] = l;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) og[lane + 32 * i] = acc[i] / l;
+      if (lane == 0) p.lse[at] = m + logf(l);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kBlock>
 cudaError_t launch_bf16(const Params& p, int B, cudaStream_t stream) {
   constexpr int smem = (BM + 4 * BN) * (D + PAD) * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_bf16_kernel<D, kBlock>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.S + BM - 1) / BM, B * p.H);
-  flash_fwd_bf16_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  flash_fwd_bf16_kernel<D, kBlock><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kBlock>
 cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
   dim3 grid((p.S + F32_ROWS - 1) / F32_ROWS, B * p.H);
-  flash_fwd_f32_kernel<D><<<grid, F32_ROWS * 32, 0, stream>>>(p);
+  flash_fwd_f32_kernel<D, kBlock><<<grid, F32_ROWS * 32, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kBlock>
+int launch(const Params& p, int B, int D, int dtype, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 128) err = launch_bf16<128, kBlock>(p, B, st);
+  else if (dtype == 1 && D == 64) err = launch_bf16<64, kBlock>(p, B, st);
+  else if (dtype == 0 && D == 128) err = launch_f32<128, kBlock>(p, B, st);
+  else if (dtype == 0 && D == 64) err = launch_f32<64, kBlock>(p, B, st);
+  else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// C entry point, loaded with ctypes. Strides are in elements; the last
+// C entry points, loaded with ctypes. Strides are in elements; the last
 // dimension of every tensor is contiguous. dtype: 0 = float32, 1 = bf16.
-// Returns the CUDA error code of the launch (0 on success).
+// Each returns the CUDA error code of the launch (0 on success).
+
+// K1: O [B, S, H, D] in the input dtype and lse [B*H, S] f32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int S, int H, int KV, int D,
                          int dtype, long long q_sb, long long q_ss,
@@ -363,18 +431,29 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          long long v_sh, long long o_sb, long long o_ss,
                          long long o_sh, float scale, int causal, int device,
                          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
   Params p{q,    k,    v,    o,    static_cast<float*>(lse),
-           S,    H,    KV,   q_sb, q_ss,
-           q_sh, k_sb, k_ss, k_sh, v_sb,
-           v_ss, v_sh, o_sb, o_ss, o_sh,
-           scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128) err = launch_bf16<128>(p, B, st);
-  else if (dtype == 1 && D == 64) err = launch_bf16<64>(p, B, st);
-  else if (dtype == 0 && D == 128) err = launch_f32<128>(p, B, st);
-  else if (dtype == 0 && D == 64) err = launch_f32<64>(p, B, st);
-  else err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+           nullptr, S, H,    KV,   q_sb,
+           q_ss, q_sh, k_sb, k_ss, k_sh,
+           v_sb, v_ss, v_sh, o_sb, o_ss,
+           o_sh, scale, causal};
+  return launch<false>(p, B, D, dtype, device, stream);
+}
+
+// K4: the f32 accumulator acc [B, S, H, D] and m, l [B*H, S] f32;
+// causal = the same-shard diagonal mask.
+extern "C" int flash_block_fwd(const void* q, const void* k, const void* v,
+                               void* acc, void* m, void* l, int B, int S,
+                               int H, int KV, int D, int dtype,
+                               long long q_sb, long long q_ss, long long q_sh,
+                               long long k_sb, long long k_ss, long long k_sh,
+                               long long v_sb, long long v_ss, long long v_sh,
+                               long long a_sb, long long a_ss, long long a_sh,
+                               float scale, int causal, int device,
+                               void* stream) {
+  Params p{q,    k,    v,    acc,  static_cast<float*>(m),
+           static_cast<float*>(l), S, H, KV, q_sb,
+           q_ss, q_sh, k_sb, k_ss, k_sh,
+           v_sb, v_ss, v_sh, a_sb, a_ss,
+           a_sh, scale, causal};
+  return launch<true>(p, B, D, dtype, device, stream);
 }

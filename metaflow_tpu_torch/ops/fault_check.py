@@ -1,18 +1,22 @@
 """Plant faults in copies of a kernel source and read each against the
 plain version: the evidence behind attention.FLASH_BWD_ROW_LIMIT (faults
-in csrc/flash_bwd.cu, read at chip_smoke.py's phase-4 shapes) and
-gmm's GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT (faults in csrc/gmm.cu, read
-at phase 6's cases, which chip_smoke.py takes from GMM_CASES below). Needs
-the card:
+in csrc/flash_bwd.cu, read at chip_smoke.py's phase-4 shapes),
+attention.FLASH_BLOCK_ROW_LIMIT and FLASH_BLOCK_STATS_LIMIT (faults in the
+ring hop's forward K4 of csrc/flash_fwd.cu, read at phase 8a's cases,
+BLOCK_FWD_CASES below) and gmm's GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT
+(faults in csrc/gmm.cu, read at phase 6's cases, which chip_smoke.py takes
+from GMM_CASES below). Needs the card:
 
-    python -m metaflow_tpu_torch.ops.fault_check [flash_bwd] [gmm]
+    python -m metaflow_tpu_torch.ops.fault_check [flash_bwd]
+        [flash_block_fwd] [gmm]
 
-(both sources when none is named). Each fault is a small edit of the
+(every mode when none is named). Each fault is a small edit of the
 source, built into its own directory under metaflow_tpu_torch/_build/
 faults/; the sound source is read first. Prints one JSON line per fault
 with each shape's readings: the row error (attention.flash_out_error) for
-bf16, and for f32 the largest |error| over 1e-5 + 1e-3 |plain| (flash)
-or over 1e-5 of the largest |plain| (gmm)."""
+bf16, and for f32 the largest |error| over 1e-5 + 1e-3 |plain| (flash
+backward), over 1e-5 (K4's acc / l) or over 1e-5 of the largest |plain|
+(gmm); K4's m and lse read attention.flash_stats_error."""
 
 import importlib
 import json
@@ -59,6 +63,108 @@ FLASH_FAULTS = {
         ("        st[j][e] = pv;",
          "        st[j][e] = " + _ROUND4 % "pv" + ";")],
 }
+
+# faults in K4, the ring hop's forward (the kBlock variant of
+# flash_fwd.cu's kernels; K1 shares the edited lines but is not read)
+BLOCK_FWD_FAULTS = {
+    "sound": [],
+    # m written in the loop's log2 units (acc / l still looks right)
+    "k4_m_in_log2_units": [
+        ("p.lse[base + row] = m_r[i] * kLn2;",
+         "p.lse[base + row] = m_r[i];")],
+    # the diagonal hop lets keys past the diagonal count (its tile loop
+    # still stops at the diagonal tile)
+    "k4_diagonal_mask_dropped": [
+        ("if (key >= S || (p.causal && key > row)) x = -INFINITY;",
+         "if (key >= S) x = -INFINITY;")],
+    # acc written normalized by l
+    "k4_acc_normalized": [
+        ("make_float2(acc[n][0], acc[n][1]);",
+         "make_float2(acc[n][0] / l_r[0], acc[n][1] / l_r[0]);"),
+        ("make_float2(acc[n][2], acc[n][3]);",
+         "make_float2(acc[n][2] / l_r[1], acc[n][3] / l_r[1]);")],
+    # a full hop skips its last key tile
+    "k4_full_hop_last_tile_skipped": [
+        ("  if (p.causal) n_tiles = min(n_tiles, (q0 + BM + BN - 1) / BN);\n",
+         "  if (p.causal) n_tiles = min(n_tiles, (q0 + BM + BN - 1) / BN);\n"
+         "  else n_tiles -= 1;\n")],
+    # the probabilities rounded to 4 mantissa bits (in P.V and in l)
+    "k4_p_4_mantissa_bits": [
+        ("      rs[0] += s[j][0] + s[j][1];",
+         "      for (int e = 0; e < 4; ++e) s[j][e] = "
+         + _ROUND4 % "s[j][e]" + ";\n      rs[0] += s[j][0] + s[j][1];")],
+    # the f32 (FMA) variant's faults, read at the f32 cases: acc written
+    # normalized by l, the diagonal mask dropped within the last key tile,
+    # and m written in log2 units
+    "k4_f32_acc_normalized": [
+        ("og[lane + 32 * i] = acc[i];", "og[lane + 32 * i] = acc[i] / l;")],
+    "k4_f32_diagonal_mask_dropped": [
+        ("if (key >= S || (p.causal && key > row)) sc = -INFINITY;",
+         "if (key >= S) sc = -INFINITY;")],
+    "k4_f32_m_in_log2_units": [
+        ("        p.lse[at] = m;",
+         "        p.lse[at] = m * 1.4426950408889634f;")],
+}
+
+# chip_smoke.py's phase-8a cases: (B, S, H, KV, D, dtype, diagonal), each
+# read through shard views of a two-shard sequence (block_fwd_inputs); the
+# last two are bench_1b's ring hop at 8k context (a 2048-row shard of 4),
+# diagonal and full
+BLOCK_FWD_CASES = [
+    (1, 128, 4, 4, 64, torch.float32, True),
+    (2, 256, 4, 2, 128, torch.float32, False),
+    (2, 256, 8, 2, 128, torch.bfloat16, True),
+    (1, 512, 4, 4, 64, torch.bfloat16, False),
+    (2, 384, 8, 4, 128, torch.bfloat16, True),
+    (2, 2048, 16, 8, 128, torch.bfloat16, True),
+    (2, 2048, 16, 8, 128, torch.bfloat16, False),
+]
+
+
+def block_fwd_inputs(case, gen):
+    """One phase-8a case's q, k, v on the card: views of [B, 2S, ...]
+    sequences, q the second shard, k and v the same shard (diagonal) or the
+    first (full), as a ring hop reads them."""
+    B, S, H, KV, D, dt, diag = case
+    q, k, v = (torch.randn(B, 2 * S, h, D, generator=gen, device="cuda")
+               .to(dt) for h in (H, KV, KV))
+    kv = slice(S, 2 * S) if diag else slice(0, S)
+    return q[:, S:], k[:, kv], v[:, kv]
+
+
+def block_fwd_case_readings(q, k, v, diag):
+    """K4 against its plain version on one case: {'acc', 'm', 'lse'} as
+    attention.flash_block_readings gives them, acc for f32 operands as
+    max |acc / l - plain| over 1e-5 (K1's f32 check). NaN reads inf."""
+    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+    scale = q.shape[-1] ** -0.5
+    got = A._flash_block_fwd_cuda(q, k, v, scale, diag)
+    want = A._flash_block_fwd_plain(q, k, v, scale, diag)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        return {"acc": float("inf"), "m": float("inf"), "lse": float("inf")}
+    out = A.flash_block_readings(*got, want)
+    if q.dtype == torch.float32:
+        out["acc"] = (A.flash_block_output(got[0], got[2])
+                      - A.flash_block_output(want[0], want[2])).abs(
+        ).max().item() / 1e-5
+    return out
+
+
+def block_fwd_readings():
+    """Each phase-8a case's readings of K4, on phase 8a's inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for case in BLOCK_FWD_CASES:
+        q, k, v = block_fwd_inputs(case, gen)
+        B, S, H, KV, D, dt, diag = case
+        row = {"shape": [B, S, H, KV, D], "dtype": str(dt).split(".")[-1],
+               "diagonal": diag}
+        row.update(block_fwd_case_readings(q, k, v, diag))
+        rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
 
 _ACC_TO_BF16 = (
     "#pragma unroll\n"
@@ -227,17 +333,21 @@ def flash_readings():
     return rows
 
 
-SOURCES = {  # source name -> (faults, readings, {reading: limit's name})
-    "flash_bwd": (FLASH_FAULTS, flash_readings, (
+SOURCES = {  # mode -> (source, faults, readings, {reading: limit's name})
+    "flash_bwd": ("flash_bwd", FLASH_FAULTS, flash_readings, (
         "attention", {k: "FLASH_BWD_ROW_LIMIT" for k in ("dq", "dk", "dv")})),
-    "gmm": (GMM_FAULTS, gmm_readings, (
+    "flash_block_fwd": ("flash_fwd", BLOCK_FWD_FAULTS, block_fwd_readings, (
+        "attention", {"acc": "FLASH_BLOCK_ROW_LIMIT",
+                      "m": "FLASH_BLOCK_STATS_LIMIT",
+                      "lse": "FLASH_BLOCK_STATS_LIMIT"})),
+    "gmm": ("gmm", GMM_FAULTS, gmm_readings, (
         "gmm", {"y": "GMM_FWD_ROW_LIMIT", "dx": "GMM_FWD_ROW_LIMIT",
                 "dw": "GMM_DW_ROW_LIMIT"})),
 }
 
 
-def run(source):
-    faults, readings, (module, limit_names) = SOURCES[source]
+def run(mode):
+    source, faults, readings, (module, limit_names) = SOURCES[mode]
     mod = importlib.import_module("metaflow_tpu_torch.ops." + module)
     limit = {k: getattr(mod, name) for k, name in limit_names.items()}
     keys = tuple(limit_names)
@@ -251,7 +361,7 @@ def run(source):
                     raise ValueError("fault %s: %r is not in %s.cu"
                                      % (name, old, source))
                 text = text.replace(old, new)
-            root = build_dir / "faults" / source / name
+            root = build_dir / "faults" / mode / name
             shutil.rmtree(root, ignore_errors=True)
             shutil.copytree(csrc, root / "csrc")
             (root / "csrc" / (source + ".cu")).write_text(text)
@@ -262,7 +372,7 @@ def run(source):
                      for n in keys}
             worst_f32 = {n: max(r[n] for r in rows if r["dtype"] == "float32")
                          for n in keys}
-            print(json.dumps({"source": source, "fault": name,
+            print(json.dumps({"mode": mode, "fault": name,
                               "worst_bf16": worst, "worst_f32": worst_f32,
                               "limit": limit, "shapes": rows}), flush=True)
     finally:
@@ -276,8 +386,8 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     names = list(argv if argv is not None else sys.argv[1:]) or list(SOURCES)
-    for source in names:
-        run(source)
+    for mode in names:
+        run(mode)
     return 0
 
 

@@ -211,16 +211,27 @@ def make_train_state(cfg, model, optimizer=None, params=None, generator=None,
             "step": 0}
 
 
-def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda"):
+def _with_mesh(loss_fn, mesh):
+    """loss_fn, given `mesh` as a keyword when there is one (the JAX
+    trainer passes its mesh to a loss_fn that takes it)."""
+    if mesh is None:
+        return loss_fn
+    return lambda params, batch, cfg, device: loss_fn(
+        params, batch, cfg, device=device, mesh=mesh)
+
+
+def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
+                    mesh=None):
     """The train step: (state, batch) -> (state, {'loss', 'grad_norm'}),
     both 0-dim f32 tensors on the device. The step updates the state's
-    parameters and moments in place and returns the same dict.
+    parameters and moments in place and returns the same dict. `mesh`
+    (e.g. a LocalRing for attention_impl='ring') goes to loss_fn.
 
     `optimizer` must be the one the state was built with; make_trainer
     shares one and checks it."""
     device = resolve_device(device)
     optimizer = optimizer or default_optimizer()
-    loss_fn = loss_fn or model.loss_fn
+    loss_fn = _with_mesh(loss_fn or model.loss_fn, mesh)
 
     def step(state, batch):
         params = state["params"]
@@ -239,23 +250,24 @@ def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda"):
 
 
 def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
-                 generator=None, device="cuda"):
+                 generator=None, device="cuda", mesh=None):
     """One-stop builder: (state, train_step) sharing a SINGLE optimizer,
     with check_opt_state run on the built state. Starts from `params` when
-    given (see make_train_state)."""
+    given (see make_train_state); `mesh` goes to the step's loss_fn."""
     optimizer = optimizer or default_optimizer()
     state = make_train_state(cfg, model, optimizer=optimizer, params=params,
                              generator=generator, device=device)
     step = make_train_step(cfg, model, optimizer=optimizer, loss_fn=loss_fn,
-                           device=device)
+                           device=device, mesh=mesh)
     check_opt_state(optimizer, state)
     return state, step
 
 
-def make_eval_step(cfg, model, loss_fn=None, device="cuda"):
-    """(params, batch) -> loss, without gradients."""
+def make_eval_step(cfg, model, loss_fn=None, device="cuda", mesh=None):
+    """(params, batch) -> loss, without gradients; `mesh` goes to
+    loss_fn."""
     device = resolve_device(device)
-    loss_fn = loss_fn or model.loss_fn
+    loss_fn = _with_mesh(loss_fn or model.loss_fn, mesh)
 
     @torch.no_grad()
     def step(params, batch):

@@ -5,7 +5,10 @@ the dispatcher's and autograd's routes to the kernels, and one trainer
 step through them; the grouped matmul K5 (both weight layouts) and K6 over
 empty and one-row groups, row_valid padding, D and F tails and both
 dtypes, its autograd route, a Mixtral trainer step through K5/K6 against
-plain gmm, and that step with no host synchronisation. Needs an NVIDIA GPU
+plain gmm, and that step with no host synchronisation; the ring hop's
+forward K4 on shard views (diagonal and full, ragged lengths, head dim
+64, GQA), ring attention on LocalRing(n) against the flash path through
+autograd, and a trainer step through the ring. Needs an NVIDIA GPU
 (tests/conftest.py imports jax, so skip it where jax is missing):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+R = importlib.import_module("metaflow_tpu_torch.ops.ring_attention")
 G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
 L = importlib.import_module("metaflow_tpu_torch.ops.launches")
 
@@ -201,6 +205,146 @@ def test_trainer_step_flash_matches_plain_attention(cuda):
             assert L.LAUNCHES["flash_bwd_dkv"] == 3 * cfg.n_layers
             assert L.LAUNCHES["flash_fwd"] == 6 * cfg.n_layers  # remat
     for got, want in zip(runs["auto"], runs["xla"]):
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        assert got["grad_norm"] == pytest.approx(want["grad_norm"],
+                                                 rel=1e-4)
+
+
+def _shard_views(gen, B, S, H, KV, D, dt, diag):
+    """q, k, v of one ring hop as views of two-shard sequences: q the
+    second shard, k and v the same shard (diagonal) or the first (full)."""
+    q, k, v = (torch.randn(B, 2 * S, h, D, generator=gen, device="cuda")
+               .to(dt) for h in (H, KV, KV))
+    kv = slice(S, 2 * S) if diag else slice(0, S)
+    return q[:, S:], k[:, kv], v[:, kv]
+
+
+@pytest.mark.parametrize("S", [1, 50, 64, 256, 384])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("diag", [True, False])
+def test_block_fwd_kernel_matches_plain(cuda, S, dtype, D, diag):
+    """K4 on strided shard views against its plain version: acc / l, m
+    and lse, as chip_smoke.py's phase 8a holds them."""
+    dt = getattr(torch, dtype)
+    q, k, v = _shard_views(cuda, 2, S, 4, 2, D, dt, diag)
+    assert not q.is_contiguous()
+    scale = D ** -0.5
+    got = A._flash_block_fwd_cuda(q, k, v, scale, diag)
+    want = A._flash_block_fwd_plain(q, k, v, scale, diag)
+    torch.cuda.synchronize()
+    r = A.flash_block_readings(*got, want)
+    assert r["m"] <= A.FLASH_BLOCK_STATS_LIMIT, r
+    assert r["lse"] <= A.FLASH_BLOCK_STATS_LIMIT, r
+    if dt == torch.float32:
+        torch.testing.assert_close(A.flash_block_output(got[0], got[2]),
+                                   A.flash_block_output(want[0], want[2]),
+                                   atol=1e-5, rtol=0)
+    else:
+        assert r["acc"] <= A.FLASH_BLOCK_ROW_LIMIT, r
+
+
+def test_block_fwd_dispatch_and_refusals(cuda):
+    q = torch.randn(1, 256, 2, 128, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    L.reset_launch_counts()
+    acc, m, l = A.flash_block_fwd(q, q, q, 0.1, True)
+    assert L.LAUNCHES["flash_block_fwd"] == 1 and acc.is_cuda
+    with pytest.raises(ValueError, match="head dims"):
+        A.flash_block_fwd(*(torch.zeros(1, 128, 2, 96, device="cuda"),) * 3,
+                          0.1, True)
+    with pytest.raises(ValueError, match="divisible by the"):
+        A.flash_block_fwd(q[:, :130], q[:, :130], q[:, :130], 0.1, True)
+    assert L.LAUNCHES["flash_block_fwd"] == 1
+
+
+def _ring_grads(fn, leaves, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*leaves)
+    out.backward(g)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("n,S,causal", [(2, 256, True), (3, 384, True),
+                                        (4, 256, False)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_ring_matches_flash_path(cuda, n, S, causal, dtype, D):
+    """ring_attention on LocalRing(n) through autograd (K4 forward, K2/K3
+    backward) against flash_attention (K1-K3) on the same whole-sequence
+    views: the JAX ring tests' tolerances in f32, the row limits in bf16.
+    A causal ring launches K4 and K2, K3 on the n diagonal and
+    n (n - 1) / 2 earlier-shard hops; a non-causal one on all n^2."""
+    dt = getattr(torch, dtype)
+    qkv = torch.randn(2, S, 8, D, generator=cuda, device="cuda").to(dt)
+    leaves = (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])  # GQA views
+    g = torch.randn(2, S, 4, D, generator=cuda, device="cuda").to(dt)
+    L.reset_launch_counts()
+    got = _ring_grads(lambda a, b, c: R.ring_attention(
+        a, b, c, R.LocalRing(n), causal=causal), leaves, g)
+    hops = n * (n + 1) // 2 if causal else n * n
+    assert (L.LAUNCHES["flash_block_fwd"], L.LAUNCHES["flash_bwd_dq"],
+            L.LAUNCHES["flash_bwd_dkv"], L.LAUNCHES["flash_fwd"]) == (
+                hops, hops, hops, 0)
+    want = _ring_grads(lambda a, b, c: A.flash_attention(
+        a, b, c, causal=causal), leaves, g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == dt and a.shape == b.shape, name
+        if dt == torch.float32:
+            tol = (dict(atol=2e-5, rtol=2e-4) if name == "out"
+                   else dict(atol=1e-5, rtol=1e-3))
+            torch.testing.assert_close(a, b, msg=name, **tol)
+        else:
+            limit = (A.FLASH_BF16_ROW_LIMIT if name == "out"
+                     else A.FLASH_BWD_ROW_LIMIT)
+            assert A.flash_out_error(a, b) <= limit, name
+
+
+def test_ring_auto_takes_the_kernels_on_aligned_shards(cuda):
+    """impl='auto' on a CUDA tensor is the flash ring: aligned shards
+    launch K4, unaligned ones raise (auto and flash alike) and launch
+    nothing; only an explicit impl='xla' runs the einsum ring."""
+    q = torch.randn(1, 520, 2, 128, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    aligned = q[:, :512]
+    L.reset_launch_counts()
+    R.ring_attention(aligned, aligned, aligned, R.LocalRing(4))
+    assert L.LAUNCHES["flash_block_fwd"] == 10
+    for impl in ("auto", "flash"):  # shards of 130
+        with pytest.raises(ValueError, match="per-device sequence shard"):
+            R.ring_attention(q, q, q, R.LocalRing(4), impl=impl)
+    R.ring_attention(q, q, q, R.LocalRing(4), impl="xla")
+    assert L.LAUNCHES["flash_block_fwd"] == 10
+
+
+def test_trainer_step_through_the_ring(cuda):
+    """Two trainer steps of a 2-layer full-width bench_1b in float32
+    through the ring on LocalRing(4) (K4, K2, K3 on 256-row shards)
+    against the same steps through K1-K3 with no mesh."""
+    from metaflow_tpu_torch import training
+    from metaflow_tpu_torch.models import llama
+
+    tokens = torch.randint(0, 32000, (1, 1025),
+                           generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for impl, mesh in (("ring", R.LocalRing(4)), ("auto", None)):
+        cfg = llama.LlamaConfig.bench_1b(n_layers=2, dtype="float32",
+                                         attention_impl=impl)
+        params = llama.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0))
+        state, step = training.make_trainer(
+            cfg, llama, optimizer=training.default_optimizer(
+                warmup_steps=1, total_steps=10), params=params, mesh=mesh)
+        L.reset_launch_counts()
+        runs[impl] = [{k: v.item() for k, v in step(state, {"tokens": tokens}
+                                                    )[1].items()}
+                      for _ in range(2)]
+        if impl == "ring":  # 10 live hops a layer pass, the forward twice
+            assert L.LAUNCHES["flash_block_fwd"] == 2 * 2 * 10 * cfg.n_layers
+            assert L.LAUNCHES["flash_bwd_dq"] == 2 * 10 * cfg.n_layers
+            assert L.LAUNCHES["flash_fwd"] == 0
+        del state, step, params
+    for got, want in zip(runs["ring"], runs["auto"]):
         assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
         assert got["grad_norm"] == pytest.approx(want["grad_norm"],
                                                  rel=1e-4)

@@ -31,6 +31,7 @@ def _port_sources():
 def test_import_leaves_jax_out():
     code = ("import sys, metaflow_tpu_torch, metaflow_tpu_torch.ops.attention,"
             " metaflow_tpu_torch.ops.gmm, metaflow_tpu_torch.ops.moe,"
+            " metaflow_tpu_torch.ops.ring_attention,"
             " metaflow_tpu_torch.models.mixtral,"
             " metaflow_tpu_torch.training.train_step,"
             " metaflow_tpu_torch.training.metrics;"
