@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py
 
-Phase 0  prints the card's name and power limit, builds the flash kernels
-         (K1 forward, K2/K3 backward) from metaflow_tpu_torch/ops/csrc with
-         one nvcc per source started together, and turns TF32 off.
-Phase 1  holds K1 against its plain PyTorch version at four shapes, the
-         inference shape last, and times K1, the plain version and
-         PyTorch's scaled_dot_product_attention (a yardstick only: the port
-         never calls it) at the inference shape.
+Phase 0  prints the card's name and power limit, builds every kernel
+         (K1 and K4 in flash_fwd.cu, K2/K3 in flash_bwd.cu, K5/K6 in
+         gmm.cu) from metaflow_tpu_torch/ops/csrc with one nvcc per source
+         started together, prints ptxas' registers and spills and, for the
+         wgmma kernels K1 and K5, their dynamic shared memory and the HGMMA
+         (wgmma) and UTMALDG (TMA) instructions in their SASS, and turns
+         TF32 off.
+Phase 1  holds K1 against its plain PyTorch version at the cases of
+         ops/fault_check.py's FWD_CASES, the inference shape last, and
+         times K1, the plain version and PyTorch's
+         scaled_dot_product_attention under each backend that runs (flash,
+         cuDNN, efficient; a yardstick only: the port never calls it) at
+         the inference shape.
 Phase 2  runs the Llama-3-8B forward at full width and depth in bf16 with
          random weights on tokens [2, 2048]: attention_impl="auto" must
          launch K1 once per layer, and its logits must agree with the
@@ -20,7 +26,8 @@ Phase 3  serves requests through SlotEngine: (a) a 2-layer full-width
          completion with no slot leaked.
 Phase 4  holds K2 (dq) and K3 (dk, dv) against their plain version at four
          shapes, the training shape last, and times K1, K2, K3, their plain
-         versions and SDPA's forward and backward at the training shape.
+         versions and SDPA's forward (each backend, K1's yardstick the
+         fastest) and backward at the training shape.
 Phase 5  trains bench_1b: (a) a 2-layer full-width float32 model's loss
          gradients through K1/K2/K3 must equal the plain-attention ones;
          (b) the full bf16 model takes 5 AdamW steps on tokens [8, 2049],
@@ -146,54 +153,121 @@ def bound_ms(work, tensor_cores):
                                        else "bytes")
 
 
-def phase1_kernel_vs_plain(A, torch):
-    """K1 against its plain version; returns the main-shape record."""
-    import torch.nn.functional as F
+def _demangle(names):
+    """names demangled by the toolkit's cu++filt (or c++filt), else as
+    they are."""
+    from metaflow_tpu_torch.ops import _build
 
-    shapes = [  # (B, S, H, KV, D, dtype, causal)
-        (1, 128, 4, 4, 64, torch.float32, True),
-        (2, 256, 8, 2, 128, torch.bfloat16, True),
-        (1, 512, 4, 4, 128, torch.bfloat16, False),
-        (2, 2048, 32, 8, 128, torch.bfloat16, True),
-    ]
+    for tool in (os.path.join(os.path.dirname(_build._nvcc()), "cu++filt"),
+                 "c++filt"):
+        try:
+            out = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, check=True)
+        except (OSError, subprocess.CalledProcessError):
+            continue
+        got = out.stdout.splitlines()
+        if len(got) == len(names):
+            return got
+    return list(names)
+
+
+def wgmma_kernel_report(_build):
+    """Phase 0's lines on the wgmma kernels (K1 and K5): for each, ptxas'
+    registers and spills, the dynamic shared memory its launch asks for,
+    and, where the toolkit has cuobjdump, the count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions in its SASS."""
+    # the dynamic shared memory of each kernel, from its mangled name
+    smem = {"gmm": lambda lib, name: lib.gmm_fwd_smem_bytes(),
+            "flash_fwd": lambda lib, name: lib.flash_fwd_smem_bytes(
+                64 if "ILi64E" in name else 128)}
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    lines = []
+    for source, smem_of in smem.items():
+        info = _build.build_info(source)
+        ptxas, fn = {}, None
+        for line in info["log"].splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and ("registers" in line or "spill" in line):
+                ptxas.setdefault(fn, []).append(
+                    line.split(":", 1)[-1].strip() if "ptxas" in line
+                    else line.strip())
+        sass = {}
+        if os.path.exists(cuobjdump):
+            dump = subprocess.run([cuobjdump, "-sass", info["path"]],
+                                  capture_output=True, text=True).stdout
+            fn = None
+            for line in dump.splitlines():
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                    sass[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                elif fn:
+                    for op in sass[fn]:
+                        sass[fn][op] += op in line
+        lib = _build.load(source)
+        names = sorted(n for n in ptxas if "wgmma_kernel" in n)
+        for mangled, pretty in zip(names, _demangle(names)):
+            lines.append("  %s: %s; dynamic smem %d bytes; SASS %s" % (
+                pretty, "; ".join(ptxas[mangled]), smem_of(lib, mangled),
+                sass.get(mangled, "not read (no cuobjdump)")))
+    return lines
+
+
+def sdpa_backend_ms(torch, q_t, k_t, v_t, causal, iters=20):
+    """F.scaled_dot_product_attention's forward on [B, H, S, D] timed under
+    each torch.nn.attention.sdpa_kernel backend that takes these inputs
+    (flash, cuDNN, efficient): ({backend: ms, or why it refused}, the
+    fastest backend, its ms). A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        try:
+            with sdpa_kernel([backend]), torch.no_grad():
+                times[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q_t, k_t, v_t, is_causal=causal), iters)
+        except RuntimeError as e:
+            times[name] = "refused: %s" % str(e).splitlines()[0][:120]
+    ran = {k: v for k, v in times.items() if isinstance(v, float)}
+    if not ran:
+        raise AssertionError("no SDPA backend ran: %s" % times)
+    best = min(ran, key=ran.get)
+    return times, best, ran[best]
+
+
+def phase1_kernel_vs_plain(A, FC, torch):
+    """K1 against its plain version at fault_check.FWD_CASES; returns the
+    main-shape record, timed against SDPA's backends."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     record = None
-    for B, S, H, KV, D, dt, causal in shapes:
-        q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
-        k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
-        v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dt)
-        scale = D ** -0.5
-        out, lse = A._flash_forward_cuda(q, k, v, causal, scale)
-        ref_out, ref_lse = A._flash_forward_plain(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        err_o = (out.float() - ref_out.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        row_err = A.flash_out_error(out, ref_out)
-        rel_rms = ((out.float() - ref_out.float()).norm()
-                   / ref_out.float().norm()).item()
+    for case in FC.FWD_CASES:
+        B, S, H, KV, D, dt, causal = case
+        q, k, v = FC.fwd_inputs(case, gen)
+        readings = FC.fwd_case_readings(q, k, v, causal)
         if dt == torch.float32:
-            # f32 on both sides: the sums differ only in order
-            tol_o, tol_lse, row_limit = 1e-5, 1e-5, None
-            ok_o = err_o <= tol_o
+            # f32 on both sides: the sums differ only in order, within 1e-5
+            limit = {"o": 1.0, "lse": 1.0}
         else:
             # O row by row against its own magnitude (attention.py,
-            # FLASH_BF16_ROW_LIMIT). lse is f32 on both sides, a sum over
-            # up to S terms in another order: S * 2^-24 * max|lse|.
-            tol_o, row_limit = None, A.FLASH_BF16_ROW_LIMIT
-            tol_lse = S * 2.0 ** -24 * ref_lse.abs().max().item() + 1e-6
-            ok_o = row_err <= row_limit
+            # FLASH_BF16_ROW_LIMIT), lse in f32 rounding units of a sum
+            # over up to S terms (FLASH_LSE_LIMIT)
+            limit = {"o": A.FLASH_BF16_ROW_LIMIT, "lse": A.FLASH_LSE_LIMIT}
         row = {"shape": [B, S, H, KV, D], "dtype": str(dt).split(".")[-1],
-               "causal": causal, "max_abs_err_o": err_o,
-               "max_abs_err_lse": err_lse, "tol_o": tol_o,
-               "row_err": row_err, "row_limit": row_limit,
-               "rel_rms_err_o": rel_rms,
-               "tol_lse": tol_lse}
-        if not (torch.isfinite(out.float()).all() and ok_o
-                and err_lse <= tol_lse):
+               "causal": causal, "readings": readings, "limit": limit}
+        if not all(readings[n] <= limit[n] for n in limit):
             log(json.dumps(row))
             raise AssertionError("K1 disagrees with its plain version: %s"
                                  % json.dumps(row))
-        if (B, S, H, KV, D) == (2, 2048, 32, 8, 128):
+        if case == FC.FWD_CASES[-1]:  # the inference shape
+            scale = D ** -0.5
+            out, _ = A._flash_forward_cuda(q, k, v, causal, scale)
+            ref_out, _ = A._flash_forward_plain(q, k, v, causal, scale)
+            row["max_abs_err_o"] = (out.float() - ref_out.float()).abs(
+            ).max().item()
+            del out, ref_out
             k_rep, v_rep = (A._broadcast_gqa(t, H).transpose(1, 2)
                             .contiguous() for t in (k, v))
             q_t = q.transpose(1, 2).contiguous()
@@ -201,9 +275,9 @@ def phase1_kernel_vs_plain(A, torch):
                 lambda: A._flash_forward_cuda(q, k, v, causal, scale), 20)
             row["plain_ms"] = cuda_ms(
                 lambda: A._flash_forward_plain(q, k, v, causal, scale), 5)
-            row["library_ms"] = cuda_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q_t, k_rep, v_rep, is_causal=causal), 20)
+            row["library_by_backend_ms"], row["library"], \
+                row["library_ms"] = sdpa_backend_ms(torch, q_t, k_rep,
+                                                    v_rep, causal)
             row["bound_ms"], row["bound_by"] = bound_ms(
                 attention_work("flash_fwd", B, S, H, KV, D, 2, causal),
                 tensor_cores=True)
@@ -529,6 +603,9 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
 
     sdpa_fwd_ms = cuda_ms(sdpa_fwd, 20)
     sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+    # K1's yardstick: the fastest backend's forward
+    by_backend, backend, k1_library_ms = sdpa_backend_ms(
+        torch, *(t.detach() for t in leaves), True)
     records = {}
     for name in ms:
         work = attention_work(name, B, S, H, KV, D, 2, True)
@@ -537,7 +614,8 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
             "ms": ms[name], "bound_ms": bound, "bound_by": by,
             "gflop": work[0] / 1e9, "gbytes": work[1] / 1e9,
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
-            "library_ms": sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms,
+            "library_ms": (k1_library_ms if name == "flash_fwd"
+                           else sdpa_bwd_ms),
             "max_abs_err": {
                 "flash_fwd": fwd_err,
                 "flash_bwd_dq": row["max_abs_err_dq"],
@@ -546,8 +624,10 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
         log("phase 4: %s at the training shape: %.4f ms, bound %.4f ms "
             "(%s; %.1f GFLOP, %.3f GB)" % (name, ms[name], bound, by,
                                           work[0] / 1e9, work[1] / 1e9))
+    records["flash_fwd"].update(library=backend,
+                                library_by_backend_ms=by_backend)
     row.update(plain_bwd_ms=plain_bwd, sdpa_fwd_ms=sdpa_fwd_ms,
-               sdpa_bwd_ms=sdpa_bwd_ms,
+               sdpa_bwd_ms=sdpa_bwd_ms, sdpa_fwd_by_backend_ms=by_backend,
                ms={n: r["ms"] for n, r in records.items()})
     return records
 
@@ -822,7 +902,8 @@ def phase6_gmm(torch, G, FC):
                                           with_plain=key == "gate_up")
             row["times"] = records[key]
             log("phase 6: %s: K5 %.3f ms (bound %.3f), K5 dx %.3f ms, K6 "
-                "%.3f ms (bound %.3f); %s %.3f / %.3f / %.3f ms" % (
+                "%.3f ms (bound %.3f); %s fwd / dx / dw %.3f / %.3f / %.3f "
+                "ms" % (
                     key, records[key]["ms"], records[key]["bound_ms"],
                     records[key]["dx_ms"], records[key]["dw_ms"],
                     records[key]["dw_bound_ms"], records[key]["library"],
@@ -973,11 +1054,10 @@ def active_params(params, cfg):
 
 
 KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
-    ("K4 flash_block_fwd", ("flash_fwd_bf16_kernel<128, true>",
-                            "flash_fwd_bf16_kernel<64, true>",
+    ("K4 flash_block_fwd", ("flash_block_fwd_bf16_kernel",
                             "flash_fwd_f32_kernel<128, true>",
                             "flash_fwd_f32_kernel<64, true>")),
-    ("K5 gmm_fwd", ("gmm_fwd_bf16", "gmm_fwd_f32")),
+    ("K5 gmm_fwd", ("gmm_fwd_wgmma", "gmm_fwd_f32")),
     ("K6 gmm_dw", ("gmm_dw_bf16", "gmm_dw_f32")),
     ("K1-K3 flash", ("flash_fwd", "flash_bwd")),
     ("cuBLAS products", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
@@ -1548,6 +1628,8 @@ def main():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
+    for line in wgmma_kernel_report(_build):
+        log(line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("allow_tf32: matmul=%s cudnn=%s" % (
@@ -1555,7 +1637,7 @@ def main():
         torch.backends.cudnn.allow_tf32))
     log("phase 0 done at %.1fs" % (time.perf_counter() - start))
 
-    inference = phase1_kernel_vs_plain(A, torch)
+    inference = phase1_kernel_vs_plain(A, FC, torch)
     log("phase 1 done at %.1fs" % (time.perf_counter() - start))
     params, fwd_launches = phase2_forward(torch, llama, A, L)
     log("phase 2 done at %.1fs" % (time.perf_counter() - start))
@@ -1650,8 +1732,10 @@ def main():
                     down_ms=down["ms"], down_bound_ms=down["bound_ms"],
                     dx_ms=up["dx_ms"], dx_bound_ms=up["dx_bound_ms"],
                     down_dx_ms=down["dx_ms"],
+                    down_dx_bound_ms=down["dx_bound_ms"],
                     library_down_ms=down["library_ms"],
-                    library_dx_ms=up["library_dx_ms"])
+                    library_dx_ms=up["library_dx_ms"],
+                    library_down_dx_ms=down["library_dx_ms"])
             else:
                 line.update(
                     launches=moe_launches["gmm_dw"],
@@ -1679,7 +1763,12 @@ def main():
                 "max_abs_err": inference["max_abs_err_o"],
                 "ms": inference["ms"], "plain_ms": inference["plain_ms"],
                 "bound_ms": inference["bound_ms"],
-                "library_ms": inference["library_ms"]}
+                "library_ms": inference["library_ms"],
+                "library": "SDPA forward, %s backend (the fastest of %s)" % (
+                    inference["library"],
+                    inference["library_by_backend_ms"])}
+            line["library"] = "SDPA forward, %s backend (the fastest of %s)" \
+                % (rec["library"], rec["library_by_backend_ms"])
         else:
             line["library"] = "SDPA backward: dq, dk, dv together"
             line["plain"] = "the plain backward: dq, dk, dv together"

@@ -35,42 +35,57 @@ def _nvcc():
     raise RuntimeError("nvcc not found; set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(name):
+def library_path(name, csrc=None, build_dir=None):
     """The source of `name` and its library's path, keyed by a hash of the
-    source, the shared headers of csrc/ and the flags."""
-    src = CSRC / (name + ".cu")
+    source, the shared headers of csrc/ and the flags (csrc and build_dir
+    default to the package's)."""
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
+    src = csrc / (name + ".cu")
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return src, BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
+    return src, build_dir / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
-def build_all(names):
-    """Build the libraries of `names` that are not built yet, one nvcc per
-    source, all started at once. Raises if any nvcc fails."""
+def start_builds(names, csrc=None, build_dir=None):
+    """Start one nvcc for each library of `names` (from csrc into
+    build_dir, the package's by default) that is not built yet; returns
+    the jobs for finish_builds."""
     jobs = []
     for name in names:
-        src, out = library_path(name)
-        if name in _LOADED or out.exists():
+        src, out = library_path(name, csrc, build_dir)
+        if (csrc is None and name in _LOADED) or out.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(out.name + ".%d.tmp" % os.getpid())
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    return jobs
+
+
+def finish_builds(jobs):
+    """Wait for the nvcc runs of start_builds; raises if any failed."""
     failed = []
     for name, src, out, tmp, proc, start in jobs:
         log = proc.communicate()[0]
         _BUILT[name] = {"built": True, "log": log,
                         "seconds": time.perf_counter() - start}
         if proc.returncode != 0:
-            failed.append("nvcc failed on %s:\n%s" % (src.name, log))
+            failed.append("nvcc failed on %s:\n%s" % (src, log))
         else:
+            out.with_name(out.name + ".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build_all(names):
+    """Build the libraries of `names` that are not built yet, one nvcc per
+    source, all started at once. Raises if any nvcc fails."""
+    finish_builds(start_builds(names))
 
 
 def load(name):
@@ -81,7 +96,9 @@ def load(name):
     src, out = library_path(name)
     if not out.exists():
         build_all([name])
-    info = {"path": str(out), "built": False, "seconds": 0.0, "log": ""}
+    log = out.with_name(out.name + ".log")
+    info = {"path": str(out), "built": False, "seconds": 0.0,
+            "log": log.read_text() if log.exists() else ""}
     info.update(_BUILT.get(name, {}))
     lib = ctypes.CDLL(str(out))
     _LOADED[name] = (lib, info)
@@ -100,6 +117,6 @@ def device_index(t):
 def build_info(name):
     """Where the library of `name` came from: path, whether this process
     built it, the build's seconds and nvcc's output (ptxas register and
-    spill report). Loads the library first."""
+    spill report, kept beside the library). Loads the library first."""
     load(name)
     return dict(_LOADED[name][1])

@@ -89,9 +89,20 @@ def _flash_forward_plain(q, k, v, causal, scale):
 # the row's keys. A row is held to its own magnitude, so late causal rows,
 # whose |O| is a fraction of max|v|, are held as tightly as early ones. On
 # an H100 the sound kernel reads at most 2.0 (chip_smoke.py's shapes and
-# every layer of the Llama-3-8B forward); faults planted in it (a dropped
-# causal mask, coarse probabilities, a bf16 accumulator) read 7.6 to 462.
+# every layer of the Llama-3-8B forward, for the first mma.sync body and
+# the wgmma one alike); faults planted in the wgmma body by
+# ops/fault_check.py flash_fwd read 6.3 to 8.2 (the probabilities at 4
+# mantissa bits), 462 to 632 (the diagonal mask dropped) and inf (a phase
+# bit not flipped: the watchdog's trap).
 FLASH_BF16_ROW_LIMIT = 4.0
+
+# How far K1's lse may stray from its plain version's, in
+# flash_stats_error's unit: both are f32 sums over up to S keys in another
+# order (the kernel's in log2 units, converted once), so within S * 2^-24
+# of the largest |lse|. On an H100 the sound kernel reads at most 0.0097
+# at phase 1's cases; the faults read 11.6 (p at 4 mantissa bits) and
+# more.
+FLASH_LSE_LIMIT = 1.0
 
 
 def flash_out_error(out, ref):
@@ -132,7 +143,8 @@ def _check_kernel_inputs(q, k, v, g=None):
         raise ValueError("flash kernel: bad shapes q %s k %s v %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     if q.dtype == torch.bfloat16:
-        # 16-byte async copies: every row must start 16-byte aligned
+        # TMA (K1) and 16-byte async copies (K2-K4): every row must start
+        # 16-byte aligned
         for name, t in named:
             if not _rows_aligned(t):
                 raise ValueError("flash kernel: %s rows are not 16-byte "

@@ -21,37 +21,46 @@
 // block once. No atomics, no second pass; a group with no active tile
 // writes zeros (the JAX backward's `visited` mask).
 //
-// Arithmetic: bf16 operands on the tensor cores (mma.sync m16n8k16, f32
-// sums), K5 rounding its f32 sum once to bf16, K6 writing f32. The float32
-// path (tests, the f32 exactness check) uses plain FMA in 64 x 64 tiles.
+// Arithmetic: bf16 operands on the tensor cores with f32 sums, K5 rounding
+// its f32 sum once to bf16, K6 writing f32. The float32 path (tests, the
+// f32 exactness check) uses plain FMA in 64 x 64 tiles.
 //
 // Bound at the Mixtral-8x7B training shape (16384 routed rows in 8 groups,
 // 17408 padded rows, D 4096, F 14336): one K5 or K6 launch does 2 * 16384
 // * 4096 * 14336 = 1.92 TFLOP, 1.95 ms at the card's 989 TFLOP/s dense
 // bf16, against 0.94 GB of weights (0.28 ms at 3.35 TB/s). So both are
-// bound by operations. What the design does about it: 128 x 128 output
-// tiles per block of 8 warps (64 x 32 each), operands fetched with
+// bound by operations, and only wgmma reaches the full tensor-core rate.
+// K5 is built for it (see its section below): a persistent block per SM of
+// one producer warpgroup and two consumer warpgroups, TMA loads into a
+// four-stage ring of 128-byte-swizzled stages on mbarriers, wgmma
+// m64n256k16 with the sums in registers, and tiles walked in bands of 16
+// row tiles so that a wave's x rows and weight columns stay in the 50 MB
+// L2. K6 keeps the first design: 128 x 128 output tiles per block of 8
+// warps on mma.sync m16n8k16 (64 x 32 each), operands fetched with
 // ldmatrix (.trans where the operand is stored k-major), a three-stage
-// cp.async pipeline over 64-deep k slices, two blocks per SM, and blocks
-// ordered in bands of 16 row tiles so that a wave's x rows and weight
-// columns stay in the 50 MB L2. wgmma and TMA, which the full tensor-core
-// rate needs, and split-K for uneven groups in K6 are left to later work.
+// cp.async pipeline over 64-deep k slices and two blocks per SM; its move
+// to wgmma, and split-K for uneven groups, are left to later work.
 //
-// Tails: K and N need not be multiples of the tile. A 16-byte chunk that is
-// whole and aligned is copied with cp.async; a partial or unaligned one is
-// read element by element and zero-filled, so any shape is taken.
+// Tails: K and N need not be multiples of the tile. TMA zero-fills past
+// them; in the cp.async paths a 16-byte chunk that is whole and aligned is
+// copied with cp.async, a partial or unaligned one element by element and
+// zero-filled, so any shape is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace tile_mma;
 
 constexpr int TILE = 128;  // rows of a layout tile (block_s)
+// K6's tiling
 constexpr int BM = 128;    // output rows per block
 constexpr int BN = 128;    // output columns per block
 constexpr int BK = 64;     // reduction depth per pipeline stage
@@ -108,8 +117,45 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
 }
 
 // ---------------------------------------------------------------------------
-// K5: bf16 tensor-core kernel
+// K5: bf16 wgmma kernel, warp-specialised and persistent
 // ---------------------------------------------------------------------------
+//
+// One block per SM walks the output tiles (128 rows x 256 columns) in
+// band_order. Warpgroup 0 is the producer: one warp fills a ring of
+// STAGES shared-memory stages, each a 128 x 64 slice of x and a 64 x 256
+// slice of B, and marks it full on its mbarrier; it skips inactive tiles
+// itself. Warpgroups 1 and 2 are the consumers, 64 rows each: they wait for
+// a full stage, run four wgmma m64n256k16 on it with the f32 sums in
+// registers (128 a thread), and hand the stage back on its empty mbarrier
+// once the wgmma that read it have finished (one group stays in flight).
+// The epilogue rounds the sums to bf16 and stores them while the producer
+// already fills the next tile's stages; an inactive tile's consumers store
+// zeros without waiting on a stage.
+//
+// Two producers fill the same swizzled stages. kTma: one thread issues TMA
+// loads (x as a 2D map over [S, K], w as a 3D map over [G, K, N], or
+// [G, N, K] when transposed, the group as the outer coordinate), and TMA
+// zero-fills past K and N. Otherwise (an operand whose base or row stride
+// is not 16-byte aligned, which a tensor map cannot describe) the producer
+// warp copies 16-byte chunks with cp.async where they are whole and
+// aligned and element by element at the ragged edge, zero-filled
+// (load_chunk), and each lane arrives on the full barrier.
+//
+// B's major: the forward's w[g] is [K, N], N contiguous, so B is MN-major
+// (four [64 k][64 n] boxes a stage); the dx's is [N, K], K-major (one
+// [256 n][64 k] box). The descriptor and wgmma's transpose bit take either,
+// so dx needs no copy of w.
+
+constexpr int WG_BM = 128;  // output rows per tile (two consumers of 64)
+constexpr int WG_BN = 256;  // output columns per tile
+constexpr int WG_BK = 64;   // reduction depth of a stage: one 128-byte row
+constexpr int WG_STAGES = 4;
+constexpr int WG_THREADS = 384;  // producer + two consumer warpgroups
+constexpr int A_BYTES = WG_BM * WG_BK * 2;          // [128][64]
+constexpr int B_BYTES = WG_BN * WG_BK * 2;     // [256][64] or 4 x [64][64]
+constexpr int B_BOX_BYTES = 64 * WG_BK * 2;         // one [64][64] box
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;      // 48 KB
+constexpr int WG_SMEM = 1024 + WG_STAGES * STAGE_BYTES + 2 * WG_STAGES * 8;
 
 struct FwdParams {
   const __nv_bfloat16* x;  // [S, K], rows ldx apart
@@ -121,114 +167,174 @@ struct FwdParams {
   long long ldx, ldy, w_sg, w_ld;  // w_ld: stride of w[g]'s leading dim
 };
 
-constexpr int LDA = BK + PAD;  // x tile [BM][BK]
-constexpr int LDB = BN + PAD;  // w tile [BK][BN] (k-major, the forward)
-constexpr int LDT = BK + PAD;  // w tile [BN][BK] (n-major, transposed)
-constexpr int A_STAGE = BM * LDA;
-constexpr int B_STAGE = (BK * LDB > BN * LDT) ? BK * LDB : BN * LDT;
-constexpr int FWD_SMEM = STAGES * (A_STAGE + B_STAGE) * 2;
+// Byte offset of element (r, c) of a [rows][64] bf16 box with the 128-byte
+// swizzle, as TMA writes it.
+__device__ __forceinline__ int swizzle_128b(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
 
-template <bool TRANS>
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-    gmm_fwd_bf16_kernel(FwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sB = sA + STAGES * A_STAGE;
-
-  const int n_blocks = (p.N + BN - 1) / BN;
-  int tile, nb;
-  band_order(blockIdx.x, p.n_tiles, n_blocks, tile, nb);
-  const int n0 = nb * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __nv_bfloat16* yg = p.y + static_cast<long long>(tile) * TILE * p.ldy;
-
-  if (p.tile_active[tile] == 0) {  // padding only: write zeros
-    for (int i = tid; i < BM * BN; i += NTHREADS) {
-      const int r = i / BN, c = n0 + i % BN;
-      if (c < p.N) yg[r * p.ldy + c] = __float2bfloat16(0.f);
-    }
-    return;
+// The cp.async producer: one warp fills stage (sa, sb) with k slice kt of
+// tile `tile` (group g) and column block n0, zero past K and N.
+template <bool kTrans>
+__device__ __forceinline__ void fill_stage(unsigned char* sa,
+                                           unsigned char* sb,
+                                           const FwdParams& p, int tile,
+                                           int g, int kt, int n0, int lane) {
+  const int k0 = kt * WG_BK;
+  const __nv_bfloat16* xs =
+      p.x + static_cast<long long>(tile) * TILE * p.ldx + k0;
+  for (int c = lane; c < WG_BM * 8; c += 32) {  // x: [128 rows][64 k]
+    const int r = c >> 3, col = (c & 7) * 8;
+    load_chunk(reinterpret_cast<__nv_bfloat16*>(sa + swizzle_128b(r, col)),
+               xs + r * p.ldx + col, p.K - k0 - col);
   }
-  const int g = p.tile_group[tile];
-  const __nv_bfloat16* xg = p.x + static_cast<long long>(tile) * TILE * p.ldx;
   const __nv_bfloat16* wg = p.w + g * p.w_sg;
-
-  auto load_stage = [&](int kt, int stage) {
-    const int k0 = kt * BK;
-    load_tile<BM, BK, LDA>(sA + stage * A_STAGE, xg + k0, p.ldx, BM,
-                           p.K - k0, tid);
-    if (TRANS)  // rows n of w[g] ([N, K]), columns k
-      load_tile<BN, BK, LDT>(sB + stage * B_STAGE, wg + n0 * p.w_ld + k0,
-                             p.w_ld, p.N - n0, p.K - k0, tid);
-    else  // rows k of w[g] ([K, N]), columns n
-      load_tile<BK, BN, LDB>(sB + stage * B_STAGE, wg + k0 * p.w_ld + n0,
-                             p.w_ld, p.K - k0, p.N - n0, tid);
-  };
-
-  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  const int nk = (p.K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {  // K5 k loop
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (kt + STAGES - 1 < nk)
-      load_stage(kt + STAGES - 1, (kt + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;
-    const __nv_bfloat16* cB = sB + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MI][4], b[NI / 2][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        load_a(a[mi], cA, LDA, wm0 + mi * 16, kk * 16, lane);
-#pragma unroll
-      for (int nj = 0; nj < NI / 2; ++nj) {
-        if (TRANS)
-          load_b_nk(b[nj], cB, LDT, wn0 + nj * 16, kk * 16, lane);
-        else
-          load_b_kn(b[nj], cB, LDB, kk * 16, wn0 + nj * 16, lane);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                   b[ni >> 1][(ni & 1) * 2 + 1]);
+  for (int c = lane; c < WG_BN * 8; c += 32) {
+    if (kTrans) {  // [256 n][64 k], K-major
+      const int r = c >> 3, col = (c & 7) * 8;
+      const int valid = n0 + r < p.N ? p.K - k0 - col : 0;
+      load_chunk(reinterpret_cast<__nv_bfloat16*>(sb + swizzle_128b(r, col)),
+                 wg + (valid > 0 ? (n0 + r) * p.w_ld + k0 + col : 0), valid);
+    } else {  // four [64 k][64 n] boxes, MN-major
+      const int box = c >> 9, r = (c >> 3) & 63, col = (c & 7) * 8;
+      const int n = n0 + box * 64 + col;
+      const int valid = k0 + r < p.K ? p.N - n : 0;
+      load_chunk(reinterpret_cast<__nv_bfloat16*>(sb + box * B_BOX_BYTES +
+                                                  swizzle_128b(r, col)),
+                 wg + (valid > 0 ? (k0 + r) * p.w_ld + n : 0), valid);
     }
   }
-  cp_async_wait<0>();
+}
 
-  const int gr = lane >> 2, t4 = lane & 3;
+template <bool kTrans, bool kTma>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    gmm_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WG_STAGES * STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 32);  // the TMA thread, or each lane
+      mbar_init(&empty[s], 2);             // one thread of each consumer
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int n_cols = (p.N + WG_BN - 1) / WG_BN;
+  const int total = p.n_tiles * n_cols;
+  const int nk = (p.K + WG_BK - 1) / WG_BK;
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int stage = 0;
+    uint32_t write_phase = 0;
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      int tile, nb;
+      band_order(t, p.n_tiles, n_cols, tile, nb);
+      if (p.tile_active[tile] == 0) continue;  // its consumers store zeros
+      const int g = p.tile_group[tile];
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&empty[stage], write_phase ^ 1);
+        unsigned char* sa = smem + stage * STAGE_BYTES;
+        unsigned char* sb = sa + A_BYTES;
+        if (kTma) {
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&full[stage], STAGE_BYTES);
+            tma_load_2d(sa, &tm_x, &full[stage], kt * WG_BK, tile * TILE);
+            if (kTrans) {
+              tma_load_3d(sb, &tm_w, &full[stage], kt * WG_BK, nb * WG_BN, g);
+            } else {
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm0 + mi * 16 + gr + h * 8;
-        const int c = n0 + wn0 + ni * 8 + t4 * 2;
-        __nv_bfloat16* dst = yg + r * p.ldy + c;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (c + 1 < p.N && (reinterpret_cast<uintptr_t>(dst) & 3) == 0) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+              for (int j = 0; j < WG_BN / 64; ++j)
+                tma_load_3d(sb + j * B_BOX_BYTES, &tm_w, &full[stage],
+                            nb * WG_BN + j * 64, kt * WG_BK, g);
+            }
+          }
         } else {
-          if (c < p.N) dst[0] = __float2bfloat16(v0);
-          if (c + 1 < p.N) dst[1] = __float2bfloat16(v1);
+          fill_stage<kTrans>(sa, sb, p, tile, g, kt, nb * WG_BN, lane);
+          cp_async_commit();
+          cp_async_wait<0>();
+          fence_proxy_async();  // the copies, before wgmma reads them
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          write_phase ^= 1;
         }
       }
+    }
+  } else {  // a consumer warpgroup: 64 rows of each tile
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    int stage = 0;
+    uint32_t read_phase = 0;
+    float acc[128];
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      int tile, nb;
+      band_order(t, p.n_tiles, n_cols, tile, nb);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      const bool active = p.tile_active[tile] != 0;
+      if (active) {
+        int held = -1;  // the stage the wgmma group in flight reads
+        for (int kt = 0; kt < nk; ++kt) {  // K5 k loop
+          mbar_wait(&full[stage], read_phase);
+          const unsigned char* sa = smem + stage * STAGE_BYTES + c * 64 * 128;
+          const unsigned char* sb = smem + stage * STAGE_BYTES + A_BYTES;
+          fence_operand(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < WG_BK / 16; ++kk) {
+            const uint64_t da = desc_k_major(sa + kk * 32);
+            if (kTrans)
+              wgmma_m64n256k16_ss<0>(acc, da, desc_k_major(sb + kk * 32), 1);
+            else
+              wgmma_m64n256k16_ss<1>(
+                  acc, da, desc_mn_major(sb + kk * 16 * 128, B_BOX_BYTES), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous k slice's group has finished
+          fence_operand(acc);
+          if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+          held = stage;
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            read_phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        fence_operand(acc);
+        if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+      }
+      // epilogue: this thread's rows r and r + 8, column pairs 8j + 2(l%4)
+      const long long r = static_cast<long long>(tile) * TILE + c * 64 +
+                          warp * 16 + lane / 4;
+      const int c0 = nb * WG_BN + (lane % 4) * 2;
+#pragma unroll
+      for (int j = 0; j < WG_BN / 8; ++j) {
+        const int col = c0 + j * 8;
+        if (col >= p.N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat16* dst = p.y + (r + h * 8) * p.ldy + col;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (col + 1 < p.N && (reinterpret_cast<uintptr_t>(dst) & 3) == 0) {
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+          } else {
+            dst[0] = __float2bfloat16(v0);
+            if (col + 1 < p.N) dst[1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -481,6 +587,44 @@ cudaError_t set_smem(const void* kernel, int bytes) {
                               bytes);
 }
 
+// K5 in bf16: the tensor maps (kTma; encoding reads no device memory), then
+// one persistent block per SM, at most one per output tile.
+template <bool kTrans, bool kTma>
+cudaError_t launch_fwd_wgmma(const FwdParams& p, int G, int device,
+                             cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  memset(&tm_x, 0, sizeof(tm_x));
+  memset(&tm_w, 0, sizeof(tm_w));
+  cudaError_t err;
+  if (kTma) {
+    const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(p.K),
+                                  static_cast<cuuint64_t>(p.n_tiles) * TILE};
+    const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(p.ldx) * 2};
+    const cuuint32_t x_box[2] = {WG_BK, WG_BM};
+    err = make_map_bf16(&tm_x, p.x, 2, x_dims, x_strides, x_box);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t inner = kTrans ? p.K : p.N, outer = kTrans ? p.N : p.K;
+    const cuuint64_t w_dims[3] = {inner, outer, static_cast<cuuint64_t>(G)};
+    const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(p.w_ld) * 2,
+                                     static_cast<cuuint64_t>(p.w_sg) * 2};
+    const cuuint32_t w_rows = kTrans ? WG_BN : WG_BK;
+    const cuuint32_t w_box[3] = {64, w_rows, 1};
+    err = make_map_bf16(&tm_w, p.w, 3, w_dims, w_strides, w_box);
+    if (err != cudaSuccess) return err;
+  }
+  const void* kernel =
+      reinterpret_cast<const void*>(gmm_fwd_wgmma_kernel<kTrans, kTma>);
+  err = set_smem(kernel, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = p.n_tiles * ((p.N + WG_BN - 1) / WG_BN);
+  const int sms = sm_count(device);
+  const int grid = tiles < sms ? tiles : sms;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  gmm_fwd_wgmma_kernel<kTrans, kTma>
+      <<<grid, WG_THREADS, WG_SMEM, st>>>(tm_x, tm_w, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points, loaded with ctypes. Strides are in elements; the last
@@ -490,12 +634,14 @@ cudaError_t set_smem(const void* kernel, int bytes) {
 
 // K5: y [S, N] = per tile x [S, K] @ B[tile_group[tile]], with B[g] = w[g]
 // ([G, K, N]) or, when w_transposed, w[g]^T (w [G, N, K]). w_ld is the
-// stride of w[g]'s first dimension.
+// stride of w[g]'s first dimension. In bf16, use_tma picks the TMA
+// producer (every base 16-byte aligned and every row stride a multiple of
+// 16 bytes, which the wrapper checks) or the cp.async one.
 extern "C" int gmm_fwd(const void* x, const void* w, void* y,
                        const void* tile_group, const void* tile_active, int S,
-                       int K, int N, long long ldx, long long ldy,
+                       int K, int N, int G, long long ldx, long long ldy,
                        long long w_sg, long long w_ld, int w_transposed,
-                       int dtype, int device, void* stream) {
+                       int use_tma, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -508,18 +654,13 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* y,
                 static_cast<const __nv_bfloat16*>(w),
                 static_cast<__nv_bfloat16*>(y), tg, ta, n_tiles, K, N, ldx,
                 ldy, w_sg, w_ld};
-    const int blocks = n_tiles * ((N + BN - 1) / BN);
-    if (w_transposed) {
-      err = set_smem(reinterpret_cast<const void*>(gmm_fwd_bf16_kernel<true>),
-                     FWD_SMEM);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      gmm_fwd_bf16_kernel<true><<<blocks, NTHREADS, FWD_SMEM, st>>>(p);
-    } else {
-      err = set_smem(
-          reinterpret_cast<const void*>(gmm_fwd_bf16_kernel<false>), FWD_SMEM);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      gmm_fwd_bf16_kernel<false><<<blocks, NTHREADS, FWD_SMEM, st>>>(p);
-    }
+    if (w_transposed)
+      err = use_tma ? launch_fwd_wgmma<true, true>(p, G, device, st)
+                    : launch_fwd_wgmma<true, false>(p, G, device, st);
+    else
+      err = use_tma ? launch_fwd_wgmma<false, true>(p, G, device, st)
+                    : launch_fwd_wgmma<false, false>(p, G, device, st);
+    return static_cast<int>(err);
   } else if (dtype == 0) {
     F32Params p{static_cast<const float*>(x), static_cast<const float*>(w),
                 static_cast<float*>(y), tg, ta, n_tiles, K, N, w_transposed,
@@ -531,6 +672,9 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* y,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory of one bf16 K5 block, in bytes.
+extern "C" int gmm_fwd_smem_bytes() { return WG_SMEM; }
 
 // K6: dw [G, D, F] f32 (contiguous) = per group the sum over its active
 // tiles of x[tile]^T dy[tile]; x [S, D], dy [S, F].

@@ -1,27 +1,37 @@
 """Plant faults in copies of a kernel source and read each against the
-plain version: the evidence behind attention.FLASH_BWD_ROW_LIMIT (faults
-in csrc/flash_bwd.cu, read at chip_smoke.py's phase-4 shapes),
-attention.FLASH_BLOCK_ROW_LIMIT and FLASH_BLOCK_STATS_LIMIT (faults in the
-ring hop's forward K4 of csrc/flash_fwd.cu, read at phase 8a's cases,
-BLOCK_FWD_CASES below) and gmm's GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT
-(faults in csrc/gmm.cu, read at phase 6's cases, which chip_smoke.py takes
-from GMM_CASES below). Needs the card:
+plain version: the evidence behind attention.FLASH_BF16_ROW_LIMIT and
+FLASH_LSE_LIMIT (faults in K1, the bf16 wgmma kernel of csrc/flash_fwd.cu,
+read at chip_smoke.py's phase-1 cases, FWD_CASES below),
+attention.FLASH_BWD_ROW_LIMIT (faults in csrc/flash_bwd.cu, read at
+chip_smoke.py's phase-4 shapes), attention.FLASH_BLOCK_ROW_LIMIT and
+FLASH_BLOCK_STATS_LIMIT (faults in the ring hop's forward K4 of
+csrc/flash_fwd.cu, read at phase 8a's cases, BLOCK_FWD_CASES below) and
+gmm's GMM_FWD_ROW_LIMIT and GMM_DW_ROW_LIMIT (faults in csrc/gmm.cu, read
+at phase 6's cases, which chip_smoke.py takes from GMM_CASES below). Needs
+the card:
 
-    python -m metaflow_tpu_torch.ops.fault_check [flash_bwd]
+    python -m metaflow_tpu_torch.ops.fault_check [flash_fwd] [flash_bwd]
         [flash_block_fwd] [gmm]
 
 (every mode when none is named). Each fault is a small edit of the
 source, built into its own directory under metaflow_tpu_torch/_build/
-faults/; the sound source is read first. Prints one JSON line per fault
-with each shape's readings: the row error (attention.flash_out_error) for
-bf16, and for f32 the largest |error| over 1e-5 + 1e-3 |plain| (flash
-backward), over 1e-5 (K4's acc / l) or over 1e-5 of the largest |plain|
-(gmm); K4's m and lse read attention.flash_stats_error."""
+faults/ (all of a mode's builds at once) and read in a process of its own,
+so a fault that deadlocks a pipeline (the mbarrier wait's watchdog traps,
+and the CUDA context is lost) reads inf without stopping the others; the
+sound source is read first. Prints one JSON line per fault with each
+shape's readings: the row error (attention.flash_out_error) for bf16, and
+for f32 the largest |error| over 1e-5 + 1e-3 |plain| (flash backward),
+over 1e-5 (K1's O and lse, K4's acc / l) or over 1e-5 of the largest
+|plain| (gmm); K1's lse and K4's m and lse read
+attention.flash_stats_error."""
 
 import importlib
 import json
+import os
 import shutil
+import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -64,8 +74,79 @@ FLASH_FAULTS = {
          "        st[j][e] = " + _ROUND4 % "pv" + ";")],
 }
 
-# faults in K4, the ring hop's forward (the kBlock variant of
-# flash_fwd.cu's kernels; K1 shares the edited lines but is not read)
+# faults in K1's bf16 wgmma body (flash_fwd.cu's flash_fwd_wgmma_kernel)
+FWD_FAULTS = {
+    "sound": [],
+    # the consumers never flip their K and V barriers' phase bit: from a
+    # stage's second use a wait passes on its previous phase, before the
+    # stage is refilled (or deadlocks, which the watchdog traps)
+    "k1_phase_bit_not_flipped": [
+        ("        const uint32_t full_phase = (it / FA_STAGES) & 1;",
+         "        const uint32_t full_phase = 0;")],
+    # the diagonal tile lets keys past the diagonal count (the tile loop
+    # still stops at the diagonal tile)
+    "k1_diagonal_mask_dropped": [
+        ("if (key >= p.S || (p.causal && key > row)) x = -INFINITY;",
+         "if (key >= p.S) x = -INFINITY;")],
+    # the probabilities rounded to 4 mantissa bits (in P V and in l)
+    "k1_p_4_mantissa_bits": [
+        ("            s[4 * jj + e] = fast_exp2(s[4 * jj + e] - mu[e / 2]);",
+         "            s[4 * jj + e] = "
+         + _ROUND4 % "fast_exp2(s[4 * jj + e] - mu[e / 2])" + ";")],
+}
+
+# chip_smoke.py's phase-1 cases: (B, S, H, KV, D, dtype, causal), the
+# Llama-3-8B inference shape last
+FWD_CASES = [
+    (1, 128, 4, 4, 64, torch.float32, True),
+    (2, 256, 8, 2, 128, torch.bfloat16, True),
+    (1, 512, 4, 4, 128, torch.bfloat16, False),
+    (2, 200, 4, 2, 64, torch.bfloat16, True),
+    (2, 2048, 32, 8, 128, torch.bfloat16, True),
+]
+
+
+def fwd_case_readings(q, k, v, causal):
+    """K1 against its plain version on one case: {'o': flash_out_error,
+    'lse': flash_stats_error} for bf16, each max |error| over 1e-5 for
+    f32 (the sums differ only in order). NaN reads inf."""
+    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+    scale = q.shape[-1] ** -0.5
+    out, lse = A._flash_forward_cuda(q, k, v, causal, scale)
+    ref_out, ref_lse = A._flash_forward_plain(q, k, v, causal, scale)
+    if not (torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+        return {"o": float("inf"), "lse": float("inf")}
+    if q.dtype == torch.float32:
+        return {"o": (out - ref_out).abs().max().item() / 1e-5,
+                "lse": (lse - ref_lse).abs().max().item() / 1e-5}
+    return {"o": A.flash_out_error(out, ref_out),
+            "lse": A.flash_stats_error(lse, ref_lse)}
+
+
+def fwd_inputs(case, gen):
+    """One phase-1 case's q, k, v on the card."""
+    B, S, H, KV, D, dt, _ = case
+    return tuple(torch.randn(B, S, h, D, generator=gen, device="cuda").to(dt)
+                 for h in (H, KV, KV))
+
+
+def fwd_readings():
+    """Each phase-1 case's readings of K1, on phase 1's inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for case in FWD_CASES:
+        q, k, v = fwd_inputs(case, gen)
+        B, S, H, KV, D, dt, causal = case
+        row = {"shape": [B, S, H, KV, D], "dtype": str(dt).split(".")[-1],
+               "causal": causal}
+        row.update(fwd_case_readings(q, k, v, causal))
+        rows.append(row)
+    return rows
+
+
+# faults in K4, the ring hop's forward (flash_fwd.cu's
+# flash_block_fwd_bf16_kernel, and the kBlock variant of the f32 kernel,
+# whose edited lines K1's f32 variant shares but is not read here)
 BLOCK_FWD_FAULTS = {
     "sound": [],
     # m written in the loop's log2 units (acc / l still looks right)
@@ -167,32 +248,56 @@ def block_fwd_readings():
 
 
 _ACC_TO_BF16 = (
+    "wgmma_wait<0>();\n"
     "#pragma unroll\n"
-    "    for (int mi = 0; mi < MI; ++mi)\n"
-    "      for (int ni = 0; ni < NI; ++ni)\n"
-    "        for (int e = 0; e < 4; ++e)\n"
-    "          acc[mi][ni][e] = __bfloat162float(__float2bfloat16("
-    "acc[mi][ni][e]));\n")
+    "          for (int i = 0; i < 128; ++i)\n"
+    "            acc[i] = __bfloat162float(__float2bfloat16(acc[i]));\n")
 
+# faults in K5's wgmma body (the kTma and cp.async producers alike, unless
+# named) and in K6
 GMM_FAULTS = {
     "sound": [],
-    # K5 multiplies each tile by the previous tile's group's weights
+    # the consumers never flip their full-barrier phase bit: from the
+    # second pass over the ring a wait passes on a stage's previous phase,
+    # before the stage is refilled (or deadlocks, which the watchdog traps)
+    "k5_phase_bit_not_flipped": [
+        ("            read_phase ^= 1;\n", "")],
+    # a consumer hands its stage back right after committing the wgmma
+    # that read it, before waiting for them, so the producer may refill it
+    # under the running products
+    "k5_stage_released_before_wgmma_wait": [
+        ("          wgmma_commit();\n"
+         "          wgmma_wait<1>();  // the previous k slice's group has "
+         "finished\n"
+         "          fence_operand(acc);\n"
+         "          if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);\n"
+         "          held = stage;\n",
+         "          wgmma_commit();\n"
+         "          if (tid == 0) mbar_arrive(&empty[stage]);\n"
+         "          wgmma_wait<1>();\n"
+         "          fence_operand(acc);\n"
+         "          held = -1;\n")],
+    # dx's B (w[g] stored [N, K], K-major) read with the forward's
+    # transpose bit, as if MN-major
+    "k5_dx_transpose_bit_ignored": [
+        ("wgmma_m64n256k16_ss<0>(acc, da, desc_k_major(sb + kk * 32), 1);",
+         "wgmma_m64n256k16_ss<1>(acc, da, desc_k_major(sb + kk * 32), 1);")],
+    # the producer loads the previous tile's group's weights
     "k5_wrong_group_weights": [
-        ("const int g = p.tile_group[tile];",
-         "const int g = p.tile_group[tile > 0 ? tile - 1 : 0];")],
-    # K5 leaves an inactive tile's output unwritten
+        ("      const int g = p.tile_group[tile];\n",
+         "      const int g = p.tile_group[tile > 0 ? tile - 1 : 0];\n")],
+    # an inactive tile's output is left unwritten
     "k5_inactive_tile_unwritten": [
-        ("if (p.tile_active[tile] == 0) {  // padding only: write zeros",
-         "if (p.tile_active[tile] == 0) { return;")],
-    # K5 skips the last 64-deep k slice
+        ("        if (col >= p.N) continue;",
+         "        if (col >= p.N || !active) continue;")],
+    # producer and consumers skip the last 64-deep k slice
     "k5_last_k_slice_skipped": [
-        ("for (int kt = 0; kt < nk; ++kt) {  // K5 k loop",
-         "for (int kt = 0; kt < nk - 1; ++kt) {")],
-    # K5 keeps its running sum in bf16 (rounded after every k slice)
+        ("  const int nk = (p.K + WG_BK - 1) / WG_BK;",
+         "  const int nk = (p.K + WG_BK - 1) / WG_BK - 1;")],
+    # the running sum kept in bf16 (rounded after every k slice)
     "k5_bf16_accumulator": [
-        ("    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;",
-         _ACC_TO_BF16
-         + "    const __nv_bfloat16* cA = sA + (kt % STAGES) * A_STAGE;")],
+        ("wgmma_wait<1>();  // the previous k slice's group has finished\n",
+         _ACC_TO_BF16)],
     # K6 loads and multiplies the rows of inactive tiles too
     "k6_counts_inactive_tiles": [
         ("auto active = [&](int kt) { return p.tile_active[first + kt / KPT]"
@@ -334,6 +439,9 @@ def flash_readings():
 
 
 SOURCES = {  # mode -> (source, faults, readings, {reading: limit's name})
+    "flash_fwd": ("flash_fwd", FWD_FAULTS, fwd_readings, (
+        "attention", {"o": "FLASH_BF16_ROW_LIMIT",
+                      "lse": "FLASH_LSE_LIMIT"})),
     "flash_bwd": ("flash_bwd", FLASH_FAULTS, flash_readings, (
         "attention", {k: "FLASH_BWD_ROW_LIMIT" for k in ("dq", "dk", "dv")})),
     "flash_block_fwd": ("flash_fwd", BLOCK_FWD_FAULTS, block_fwd_readings, (
@@ -346,38 +454,72 @@ SOURCES = {  # mode -> (source, faults, readings, {reading: limit's name})
 }
 
 
-def run(mode):
-    source, faults, readings, (module, limit_names) = SOURCES[mode]
+def _fault_root(mode, name):
+    return _build.BUILD_DIR / "faults" / mode / name
+
+
+def _plant(mode, name):
+    """Write the fault's copy of csrc/ and start its build; returns the
+    build jobs."""
+    source, faults = SOURCES[mode][:2]
+    text = (_build.CSRC / (source + ".cu")).read_text()
+    for old, new in faults[name]:
+        if old not in text:
+            raise ValueError("fault %s: %r is not in %s.cu"
+                             % (name, old, source))
+        text = text.replace(old, new)
+    root = _fault_root(mode, name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root / "csrc")
+    (root / "csrc" / (source + ".cu")).write_text(text)
+    return _build.start_builds([source], root / "csrc", root / "build")
+
+
+def read_fault(mode, name):
+    """This process's reading of one planted fault (built by _plant): the
+    JSON line run() prints."""
+    source, _, readings, (module, limit_names) = SOURCES[mode]
     mod = importlib.import_module("metaflow_tpu_torch.ops." + module)
-    limit = {k: getattr(mod, name) for k, name in limit_names.items()}
-    keys = tuple(limit_names)
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    text0 = (csrc / (source + ".cu")).read_text()
-    try:
-        for name, edits in faults.items():
-            text = text0
-            for old, new in edits:
-                if old not in text:
-                    raise ValueError("fault %s: %r is not in %s.cu"
-                                     % (name, old, source))
-                text = text.replace(old, new)
-            root = build_dir / "faults" / mode / name
-            shutil.rmtree(root, ignore_errors=True)
-            shutil.copytree(csrc, root / "csrc")
-            (root / "csrc" / (source + ".cu")).write_text(text)
-            _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "build"
-            _build._LOADED.pop(source, None)
-            rows = readings()
-            worst = {n: max(r[n] for r in rows if r["dtype"] == "bfloat16")
-                     for n in keys}
-            worst_f32 = {n: max(r[n] for r in rows if r["dtype"] == "float32")
-                         for n in keys}
-            print(json.dumps({"mode": mode, "fault": name,
-                              "worst_bf16": worst, "worst_f32": worst_f32,
-                              "limit": limit, "shapes": rows}), flush=True)
-    finally:
-        _build.CSRC, _build.BUILD_DIR = csrc, build_dir
-        _build._LOADED.pop(source, None)
+    limit = {k: getattr(mod, n) for k, n in limit_names.items()}
+    root = _fault_root(mode, name)
+    _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "build"
+    _build._LOADED.pop(source, None)
+    rows = readings()
+    worst = {dt: {n: max([r[n] for r in rows if r["dtype"] == dt],
+                         default=None) for n in limit}
+             for dt in ("bfloat16", "float32")}
+    return {"mode": mode, "fault": name, "worst_bf16": worst["bfloat16"],
+            "worst_f32": worst["float32"], "limit": limit, "shapes": rows}
+
+
+def run(mode):
+    """Plant every fault of `mode`, build them all at once, then read each
+    in a process of its own and print its JSON line. A reading process
+    that dies (a CUDA error, the watchdog's trap) reads inf."""
+    faults, limit_names = SOURCES[mode][1], SOURCES[mode][3][1]
+    jobs = []
+    for name in faults:
+        jobs += _plant(mode, name)
+    _build.finish_builds(jobs)
+    package_root = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [package_root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for name in faults:
+        proc = subprocess.run(
+            [sys.executable, "-m", "metaflow_tpu_torch.ops.fault_check",
+             "--read", mode, name], capture_output=True, text=True, env=env,
+            cwd=package_root)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        if proc.returncode == 0 and lines:
+            print(lines[-1], flush=True)
+            continue
+        said = proc.stderr.strip().splitlines() or ["no output"]
+        err = next((ln for ln in reversed(said) if "CUDA error" in ln),
+                   said[-1])
+        inf = {n: float("inf") for n in limit_names}
+        print(json.dumps({"mode": mode, "fault": name, "worst_bf16": inf,
+                          "worst_f32": inf, "error": err[:300]}), flush=True)
 
 
 def main(argv=None):
@@ -385,8 +527,11 @@ def main(argv=None):
         print("fault_check: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = list(argv if argv is not None else sys.argv[1:]) or list(SOURCES)
-    for mode in names:
+    args = list(argv if argv is not None else sys.argv[1:])
+    if args[:1] == ["--read"]:
+        print(json.dumps(read_fault(args[1], args[2])), flush=True)
+        return 0
+    for mode in args or list(SOURCES):
         run(mode)
     return 0
 

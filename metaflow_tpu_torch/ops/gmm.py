@@ -4,11 +4,13 @@
 and padded so that every `block_s`-row tile belongs to ONE group
 (`make_group_layout`). `gmm` is a torch.autograd.Function (the JAX
 package's custom_vjp): its forward and its dx are the hand-written Hopper
-kernel K5 of csrc/gmm.cu (replacing the TPU kernel `_gmm_fwd_kernel`; dx
-reads the stored weights transposed, with no transposed copy), its dw the
-kernel K6 (replacing `_gmm_dw_kernel`), which sums each group's tiles in
-one block. Each kernel's plain PyTorch version sits beside it: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises.
+kernel K5 of csrc/gmm.cu (replacing the TPU kernel `_gmm_fwd_kernel`; wgmma
+fed by TMA, or by cp.async where an operand is not 16-byte aligned, see
+_gmm_fwd_producer; dx reads the stored weights transposed, with no
+transposed copy), its dw the kernel K6 (replacing `_gmm_dw_kernel`), which
+sums each group's tiles in one block. Each kernel's plain PyTorch version
+sits beside it: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel or raises.
 
 Nothing on the path reads a value back to the host: the layout is built
 with scatter_add_, a stable argsort and searchsorted at static shapes, and
@@ -35,12 +37,15 @@ BLOCK_S = BLOCK_F = BLOCK_D = KERNEL_TILE
 # about one bf16 ulp of it). Both sides take the same bf16 products exactly
 # and sum them in f32 in another order. K5 then rounds once to bf16, so a
 # row differs by at most one ulp of an element; K6's f32 dw differs by the
-# sums' order alone. On an H100 the sound kernels read at most 1.97 (K5)
-# and 0.0016 (K6) at chip_smoke.py's phase-6 cases; faults planted by
-# ops/fault_check.py read 9.3 to 19.7 (K5 summing in bf16, at the training
-# shapes) and 30 to inf (the others), and 392 (K6 adding an inactive
-# tile). Each limit sits between its kernel's sound readings and its
-# weakest fault.
+# sums' order alone. On an H100 the sound kernels read at most 1.97 (K5,
+# its wgmma body as its first mma.sync one) and 0.0016 (K6) at
+# chip_smoke.py's phase-6 cases; faults planted in K5's wgmma body by
+# ops/fault_check.py read 9.3 to 19.7 (summing in bf16, at the training
+# shapes), 30 to 8e5 (a stage released before its wgmma wait, the dx
+# transpose bit, the group, the last k slice) and inf (an inactive tile
+# left unwritten, a phase bit not flipped: the watchdog's trap), and 392
+# (K6 adding an inactive tile). Each limit sits between its kernel's
+# sound readings and its weakest fault.
 GMM_FWD_ROW_LIMIT = 4.0
 GMM_DW_ROW_LIMIT = 0.5
 
@@ -198,6 +203,19 @@ def _check_operands(named, dtype, device):
                          % dtype)
 
 
+def _gmm_fwd_producer(x, w):
+    """Which producer K5 runs in bf16: "tma" when TMA tensor maps can
+    describe x and w (base addresses 16-byte aligned, row and group strides
+    multiples of 16 bytes), else "cp_async", which copies the same stages
+    with cp.async and element by element at the ragged edge. Decided from
+    pointers and strides alone, the same for w as stored or transposed."""
+    nbytes = x.element_size()
+    aligned = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+               and all(st * nbytes % 16 == 0
+                       for st in (x.stride(0), w.stride(0), w.stride(1))))
+    return "tma" if aligned else "cp_async"
+
+
 def _gmm_fwd_cuda(x, w, tile_group, tile_active, w_transposed=False):
     """Launch K5 on the card. Same contract as _gmm_fwd_plain."""
     _check_operands((("x", x), ("w", w)), x.dtype, x.device)
@@ -212,12 +230,13 @@ def _gmm_fwd_cuda(x, w, tile_group, tile_active, w_transposed=False):
     y = torch.empty(S, N, dtype=x.dtype, device=x.device)
     fn = _build.load("gmm").gmm_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), tg.data_ptr(),
-             ta.data_ptr(), S, K, N, x.stride(0), y.stride(0), w.stride(0),
+             ta.data_ptr(), S, K, N, G, x.stride(0), y.stride(0), w.stride(0),
              w.stride(1), int(bool(w_transposed)),
+             int(_gmm_fwd_producer(x, w) == "tma"),
              1 if x.dtype == torch.bfloat16 else 0, _build.device_index(x),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -1,14 +1,15 @@
 """The kernels on the card against their plain versions, at shapes beyond
 chip_smoke.py's: the flash forward (K1) and backward (K2, K3) at ragged
-sequence lengths, strided inputs and output gradients, head dim 64, GQA,
-the dispatcher's and autograd's routes to the kernels, and one trainer
-step through them; the grouped matmul K5 (both weight layouts) and K6 over
-empty and one-row groups, row_valid padding, D and F tails and both
-dtypes, its autograd route, a Mixtral trainer step through K5/K6 against
-plain gmm, and that step with no host synchronisation; the ring hop's
-forward K4 on shard views (diagonal and full, ragged lengths, head dim
-64, GQA), ring attention on LocalRing(n) against the flash path through
-autograd, and a trainer step through the ring. Needs an NVIDIA GPU
+and long sequence lengths, strided inputs and output gradients, head dim
+64, GQA, the dispatcher's and autograd's routes to the kernels, and one
+trainer step through them; the grouped matmul K5 (both weight layouts,
+both producers, a persistent grid over more tiles than SMs, a single
+tile) and K6 over empty and one-row groups, row_valid padding, D and F
+tails and both dtypes, its autograd route, a Mixtral trainer step through
+K5/K6 against plain gmm, and that step with no host synchronisation; the
+ring hop's forward K4 on shard views (diagonal and full, ragged lengths,
+head dim 64, GQA), ring attention on LocalRing(n) against the flash path
+through autograd, and a trainer step through the ring. Needs an NVIDIA GPU
 (tests/conftest.py imports jax, so skip it where jax is missing):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -59,6 +60,16 @@ def test_kernel_matches_plain(cuda, S, dtype, D, causal):
     q = torch.randn(2, S, 4, D, generator=cuda, device="cuda").to(dt)
     k = torch.randn(2, S, 2, D, generator=cuda, device="cuda").to(dt)
     v = torch.randn(2, S, 2, D, generator=cuda, device="cuda").to(dt)
+    _check(q, k, v, causal)
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,causal", [
+    (1, 4096, 4, 2, 128, False),  # 32 key tiles a block, both stages reused
+    (2, 1000, 4, 1, 64, True),    # D 64, S not a multiple of 128
+])
+def test_kernel_at_long_and_ragged_lengths(cuda, B, S, H, KV, D, causal):
+    q, k, v = (torch.randn(B, S, h, D, generator=cuda, device="cuda").to(
+        torch.bfloat16) for h in (H, KV, KV))
     _check(q, k, v, causal)
 
 
@@ -428,6 +439,68 @@ def test_gmm_inactive_tile_is_skipped_and_zeroed(cuda):
     _assert_gmm_close(y, G._gmm_fwd_plain(x, w, tg, ta), "y_bf16")
     _assert_gmm_close(G._gmm_dw_cuda(x, dy, tg, ta, w.shape[0]),
                       G._gmm_dw_plain(x, dy, tg, ta, w.shape[0]), "dw_bf16")
+
+
+def _unaligned_copy(t):
+    """t's values in a tensor whose base is one element past a 16-byte
+    boundary, which no TMA tensor map can describe."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("producer", ["tma", "cp_async"])
+def test_gmm_persistent_grid_over_many_tiles(cuda, producer):
+    """K5 (forward and dx) with more output tiles than the card has SMs,
+    so each persistent block walks several, and inactive tiles between
+    active ones, on both producers."""
+    n, groups, D, F = 4800, 6, 256, 1024
+    gids = torch.randint(0, groups, (n,), generator=cuda, device="cuda")
+    layout = G.make_group_layout(gids, groups)
+    x = G.scatter_rows(torch.randn(n, D, generator=cuda, device="cuda"),
+                       layout).to(torch.bfloat16)
+    w = (torch.randn(groups, D, F, generator=cuda, device="cuda")
+         * D ** -0.5).to(torch.bfloat16)
+    dy = torch.randn(x.shape[0], F, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    tg, ta = layout["tile_group"], layout["tile_active"].clone()
+    ta[1::3] = 0  # every third tile inactive, real rows or not
+    n_tiles = tg.shape[0] * ((F + 255) // 256)
+    assert n_tiles > torch.cuda.get_device_properties(0).multi_processor_count
+    if producer == "cp_async":
+        x, w, dy = (_unaligned_copy(t) for t in (x, w, dy))
+    assert G._gmm_fwd_producer(x, w) == producer
+    assert G._gmm_fwd_producer(dy, w) == producer
+    torch.full((x.shape[0], F), float("nan"), dtype=x.dtype, device="cuda")
+    y = G._gmm_fwd_cuda(x, w, tg, ta)  # reuses the freed NaN block
+    assert torch.isfinite(y).all()
+    assert y.view(-1, 128, F)[1::3].abs().max() == 0
+    _assert_gmm_close(y, G._gmm_fwd_plain(x, w, tg, ta), "y_bf16")
+    _assert_gmm_close(G._gmm_fwd_cuda(dy, w, tg, ta, w_transposed=True),
+                      G._gmm_fwd_plain(dy, w, tg, ta, w_transposed=True),
+                      "dx_bf16")
+
+
+@pytest.mark.parametrize("producer", ["tma", "cp_async"])
+def test_gmm_single_tile(cuda, producer):
+    """K5 on one 128-row tile and one column block: a grid of one block."""
+    x = torch.randn(128, 64, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(1, 64, 192, generator=cuda, device="cuda") * 0.1).to(
+        torch.bfloat16)
+    dy = torch.randn(128, 192, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    if producer == "cp_async":
+        x, w, dy = (_unaligned_copy(t) for t in (x, w, dy))
+    assert G._gmm_fwd_producer(x, w) == producer
+    tg = torch.zeros(1, dtype=torch.int32, device="cuda")
+    ta = torch.ones_like(tg)
+    _assert_gmm_close(G._gmm_fwd_cuda(x, w, tg, ta),
+                      G._gmm_fwd_plain(x, w, tg, ta), "y_bf16")
+    _assert_gmm_close(G._gmm_fwd_cuda(dy, w, tg, ta, w_transposed=True),
+                      G._gmm_fwd_plain(dy, w, tg, ta, w_transposed=True),
+                      "dx_bf16")
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -203,6 +203,37 @@ def test_gmm_refusals():
         port_gmm.gmm(torch.ones(128, 64), torch.ones(1, 64, 64), tg, 128)
 
 
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("x,w,want", [
+    (_bf16(256, 64), _bf16(2, 64, 128), "tma"),
+    # dx: the output gradient against the stored [G, N, K] weights
+    (_bf16(256, 128), _bf16(2, 64, 128), "tma"),
+    # rows padded to a 16-byte multiple (144 bytes), read in place
+    (_bf16(256, 72)[:, :64], _bf16(2, 64, 128), "tma"),
+    # K 37: x's rows are 74 bytes apart
+    (_bf16(256, 37), _bf16(2, 37, 64), "cp_async"),
+    # F 50: w's rows are 100 bytes apart
+    (_bf16(256, 64), _bf16(2, 64, 50), "cp_async"),
+    # a base one element past a 16-byte boundary
+    (_bf16(256 * 64 + 1)[1:].view(256, 64), _bf16(2, 64, 128), "cp_async"),
+    (_bf16(256, 64), _bf16(2 * 64 * 128 + 8)[8:].view(2, 64, 128), "tma"),
+    # groups 8200 elements apart: a multiple of 8 elements, 16 bytes
+    (_bf16(256, 64), _bf16(2, 8200)[:, :8192].view(2, 64, 128), "tma"),
+    (_bf16(256, 64), _bf16(2, 8196)[:, :8192].view(2, 64, 128), "cp_async"),
+], ids=["forward", "dx", "padded_rows", "x_rows_unaligned",
+        "w_rows_unaligned", "x_base_unaligned", "w_base_aligned_offset",
+        "w_groups_aligned", "w_groups_unaligned"])
+def test_gmm_fwd_producer_follows_strides_and_pointers(x, w, want):
+    """K5's producer choice: TMA where tensor maps can describe x and w
+    (16-byte aligned bases, row and group strides multiples of 16 bytes),
+    cp.async otherwise; from pointers and strides alone, so a CPU tensor
+    answers as a CUDA one would."""
+    assert port_gmm._gmm_fwd_producer(x, w) == want
+
+
 def _moe_inputs(seed=2, B=2, S=16, E=128, F=128, N=4):
     rng = _rng(seed)
     x = rng.standard_normal((B, S, E)).astype(np.float32)
