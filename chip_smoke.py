@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline CHECKOUT]
+
+--baseline CHECKOUT: a directory holding an earlier checkout's
+metaflow_tpu_torch/ops/csrc (e.g. `git archive <commit>
+metaflow_tpu_torch/ops/csrc | tar -x -C _checkout/old`); its K3 and K6
+are built beside this tree's and timed against them in turns (earlier,
+this, this, earlier) in phases 4 and 6. Without it those timings are
+left out and everything else runs.
 
 Phase 0  prints the card's name and power limit, builds every kernel
          (K1 and K4 in flash_fwd.cu, K2/K3 in flash_bwd.cu, K5/K6 in
          gmm.cu) from metaflow_tpu_torch/ops/csrc with one nvcc per source
          started together, prints ptxas' registers and spills and, for the
-         wgmma kernels K1 and K5, their dynamic shared memory and the HGMMA
-         (wgmma) and UTMALDG (TMA) instructions in their SASS, and turns
-         TF32 off.
+         wgmma kernels K1, K3, K5 and K6, their dynamic shared memory and
+         the HGMMA (wgmma) and UTMALDG (TMA) instructions in their SASS,
+         and turns TF32 off.
 Phase 1  holds K1 against its plain PyTorch version at the cases of
          ops/fault_check.py's FWD_CASES, the inference shape last, and
          times K1, the plain version and PyTorch's
@@ -26,8 +33,9 @@ Phase 3  serves requests through SlotEngine: (a) a 2-layer full-width
          completion with no slot leaked.
 Phase 4  holds K2 (dq) and K3 (dk, dv) against their plain version at four
          shapes, the training shape last, and times K1, K2, K3, their plain
-         versions and SDPA's forward (each backend, K1's yardstick the
-         fastest) and backward at the training shape.
+         versions and SDPA's forward and backward under each backend (the
+         fastest is K1's and the K2 + K3 pair's yardstick) at the training
+         shape.
 Phase 5  trains bench_1b: (a) a 2-layer full-width float32 model's loss
          gradients through K1/K2/K3 must equal the plain-attention ones;
          (b) the full bf16 model takes 5 AdamW steps on tokens [8, 2049],
@@ -35,12 +43,16 @@ Phase 5  trains bench_1b: (a) a 2-layer full-width float32 model's loss
          of step 2 held against its plain version, the loss falling from
          step 1 to step 4; prints step ms, tokens/s, MFU and peak memory.
 Phase 6  holds the grouped-matmul kernels K5 (forward, and on the
-         transposed weights for dx) and K6 (dw) against their plain
-         versions at the cases of ops/fault_check.py's GMM_CASES (empty and
-         one-row groups, row_valid padding, D and F tails, a real tile
-         forced inactive, f32 and bf16), Mixtral-8x7B's down and gate/up
-         training shapes last, and times K5, K6, their plain versions and
-         torch._grouped_mm (a yardstick only: the port never calls it) there.
+         transposed weights for dx) and K6 (dw, f32 and bf16 out) against
+         their plain versions at the cases of ops/fault_check.py's
+         GMM_CASES (empty and one-row groups, row_valid padding, D and F
+         tails, a real tile forced inactive, f32 and bf16), Mixtral-8x7B's
+         down and gate/up training shapes and the gate/up shape with 70 %
+         of the rows in one group last; K6's bf16 output must equal its f32
+         one rounded once, and its distance from the plain sum rounded once
+         is counted in bf16 ulps. Times K5, K6, their plain versions and
+         torch._grouped_mm (a yardstick only: the port never calls it)
+         with K6's output dtype there.
 Phase 7  trains Mixtral-8x7B at full width, 2 of 32 layers, with
          moe_dispatch="gmm": (a) in float32 on tokens [2, 513], the loss and
          every gradient through K5/K6 (and K1-K3) must equal the ones
@@ -172,13 +184,17 @@ def _demangle(names):
 
 
 def wgmma_kernel_report(_build):
-    """Phase 0's lines on the wgmma kernels (K1 and K5): for each, ptxas'
-    registers and spills, the dynamic shared memory its launch asks for,
-    and, where the toolkit has cuobjdump, the count of HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions in its SASS."""
+    """Phase 0's lines on the wgmma kernels (K1, K3, K5 and K6): for each,
+    ptxas' registers and spills, the dynamic shared memory its launch asks
+    for, and, where the toolkit has cuobjdump, the count of HGMMA (wgmma)
+    and UTMALDG (TMA load) instructions in its SASS."""
     # the dynamic shared memory of each kernel, from its mangled name
-    smem = {"gmm": lambda lib, name: lib.gmm_fwd_smem_bytes(),
+    smem = {"gmm": lambda lib, name: (lib.gmm_dw_smem_bytes()
+                                      if "gmm_dw" in name
+                                      else lib.gmm_fwd_smem_bytes()),
             "flash_fwd": lambda lib, name: lib.flash_fwd_smem_bytes(
+                64 if "ILi64E" in name else 128),
+            "flash_bwd": lambda lib, name: lib.flash_bwd_dkv_smem_bytes(
                 64 if "ILi64E" in name else 128)}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     lines = []
@@ -236,6 +252,110 @@ def sdpa_backend_ms(torch, q_t, k_t, v_t, causal, iters=20):
         raise AssertionError("no SDPA backend ran: %s" % times)
     best = min(ran, key=ran.get)
     return times, best, ran[best]
+
+
+def sdpa_backward_backend_ms(torch, q_t, k_t, v_t, g_t, causal, iters=10):
+    """F.scaled_dot_product_attention's backward (dq, dk, dv together) on
+    [B, H, S, D] under each sdpa_kernel backend that takes these inputs,
+    timed as forward + backward minus the forward: ({backend: ms, or why
+    it refused}, the fastest backend, its ms). A yardstick only."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().requires_grad_(True) for t in (q_t, k_t, v_t)]
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        torch.autograd.grad(o, leaves, g_t)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+    times = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        try:
+            with sdpa_kernel([backend]):
+                times[name] = cuda_ms(fwd_bwd, iters) - cuda_ms(fwd, iters)
+        except RuntimeError as e:
+            times[name] = "refused: %s" % str(e).splitlines()[0][:120]
+    ran = {k: v for k, v in times.items() if isinstance(v, float)}
+    if not ran:
+        raise AssertionError("no SDPA backend ran the backward: %s" % times)
+    best = min(ran, key=ran.get)
+    return times, best, ran[best]
+
+
+def in_turns(a, b, iters):
+    """The times of two calls measured in turns on one card (a, b, b, a),
+    so that drift between the turns (clocks, power) falls on both alike:
+    (a's ms, b's ms, the four turns' ms)."""
+    turns = [cuda_ms(fn, iters) for fn in (a, b, b, a)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def old_new_ms(old, new, iters):
+    """An earlier build's time and this one's of the same call, in turns:
+    {'old_ms', 'new_ms', 'turns_ms'}."""
+    old_ms, new_ms, turns = in_turns(old, new, iters)
+    return {"old_ms": old_ms, "new_ms": new_ms, "turns_ms": turns}
+
+
+def baseline_library(_build, root, name):
+    """The ctypes library of csrc/<name>.cu of an earlier checkout at
+    `root` (chip_smoke.py --baseline ROOT), built into
+    metaflow_tpu_torch/_build/baseline/ by phase 0."""
+    import ctypes
+
+    src, out = _build.library_path(
+        name, csrc=_baseline_csrc(root),
+        build_dir=_build.BUILD_DIR / "baseline")
+    return ctypes.CDLL(str(out))
+
+
+def _baseline_csrc(root):
+    from pathlib import Path
+
+    return Path(root).resolve() / "metaflow_tpu_torch" / "ops" / "csrc"
+
+
+@contextlib.contextmanager
+def baseline_flash_bwd(_build, lib):
+    """Inside the block, the flash backward wrappers launch the earlier
+    build `lib` (its C entry points take the same arguments)."""
+    _build.load("flash_bwd")
+    saved = _build._LOADED["flash_bwd"]
+    _build._LOADED["flash_bwd"] = (lib, saved[1])
+    try:
+        yield
+    finally:
+        _build._LOADED["flash_bwd"] = saved
+
+
+def baseline_gmm_dw(torch, G, lib, x, dy, tg, ta, groups):
+    """The earlier build's K6 (f32 dw, the mma.sync body), through its own
+    C entry point."""
+    import ctypes
+
+    from metaflow_tpu_torch.ops import _build
+
+    tg, ta = G._tile_tables(x, tg, ta)
+    dw = torch.empty(groups, x.shape[1], dy.shape[1], dtype=torch.float32,
+                     device=x.device)
+    fn = lib.gmm_dw
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), tg.data_ptr(),
+             ta.data_ptr(), x.shape[0], x.shape[1], dy.shape[1], groups,
+             x.stride(0), dy.stride(0), 1, _build.device_index(x),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("baseline gmm_dw failed: CUDA error %d" % err)
+    return dw
 
 
 def phase1_kernel_vs_plain(A, FC, torch):
@@ -514,10 +634,11 @@ def _f32_excess(got, want):
     return ((got - want).abs() / (1e-5 + 1e-3 * want.abs())).max().item()
 
 
-def phase4_backward(A, torch):
+def phase4_backward(A, torch, baseline=None):
     """K2 and K3 against their plain version at four shapes, the training
     shape last; at the training shape K1 too, and the times of K1, K2, K3,
-    the plain versions and SDPA. Returns {kernel name: record}."""
+    the plain versions, SDPA and (baseline: an earlier build of
+    flash_bwd.cu) the earlier K3. Returns {kernel name: record}."""
     import torch.nn.functional as F
 
     shapes = [  # (B, S, H, KV, D, dtype, causal)
@@ -557,14 +678,17 @@ def phase4_backward(A, torch):
                                  "%s" % json.dumps(row))
         if (B, S, H, KV, D) == TRAIN_SHAPE:
             records = _time_training_shape(A, torch, F, q, k, v, g, out, lse,
-                                           delta, row)
+                                           delta, row, baseline)
         log(json.dumps(row))
     return records
 
 
-def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
+def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row,
+                         baseline=None):
     """K1 held against its plain version at the training shape, then every
-    time of the kernel report: each kernel, the plain versions, SDPA."""
+    time of the kernel report: each kernel, the plain versions, SDPA (its
+    backward under each backend, K2 + K3's yardstick the fastest) and,
+    with a baseline library, the earlier K3 in turns with this one."""
     B, S, H, KV, D = TRAIN_SHAPE
     scale = D ** -0.5
     ref_out, _ = A._flash_forward_plain(q, k, v, True, scale)
@@ -587,25 +711,35 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
     plain_bwd = cuda_ms(lambda: A._flash_block_bwd_plain(
         q, k, v, g, lse, delta, scale, True), 3)
     # SDPA on [B, H, S, D] with the kv heads repeated; its backward is
-    # timed as forward + backward minus forward
+    # timed as forward + backward minus forward, under each backend
     q_t, g_t = (t.transpose(1, 2).contiguous() for t in (q, g))
     k_t, v_t = (A._broadcast_gqa(t, H).transpose(1, 2).contiguous()
                 for t in (k, v))
-    leaves = [t.requires_grad_(True) for t in (q_t, k_t, v_t)]
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
-        torch.autograd.grad(o, leaves, g_t)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(*leaves, is_causal=True)
-
-    sdpa_fwd_ms = cuda_ms(sdpa_fwd, 20)
-    sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, 20) - sdpa_fwd_ms
+    bwd_by_backend, bwd_backend, sdpa_bwd_ms = sdpa_backward_backend_ms(
+        torch, q_t, k_t, v_t, g_t, True)
     # K1's yardstick: the fastest backend's forward
     by_backend, backend, k1_library_ms = sdpa_backend_ms(
-        torch, *(t.detach() for t in leaves), True)
+        torch, q_t, k_t, v_t, True)
+    if baseline is not None:
+        from metaflow_tpu_torch.ops import _build
+
+        def new_dkv():
+            return A._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, True)
+
+        def old_dkv():
+            with baseline_flash_bwd(_build, baseline):
+                return new_dkv()
+
+        row["dkv_old_new"] = old_new_ms(old_dkv, new_dkv, 20)
+        (old_dk, old_dv), (new_dk, new_dv) = old_dkv(), new_dkv()
+        row["dkv_old_new"]["row_err_new_vs_old"] = max(
+            A.flash_out_error(new_dk, old_dk), A.flash_out_error(new_dv,
+                                                                 old_dv))
+        del old_dk, old_dv, new_dk, new_dv
+        log("phase 4: K3 earlier build %.4f ms, this build %.4f ms (turns "
+            "%s)" % (row["dkv_old_new"]["old_ms"],
+                     row["dkv_old_new"]["new_ms"],
+                     row["dkv_old_new"]["turns_ms"]))
     records = {}
     for name in ms:
         work = attention_work(name, B, S, H, KV, D, 2, True)
@@ -616,6 +750,9 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
             "library_ms": (k1_library_ms if name == "flash_fwd"
                            else sdpa_bwd_ms),
+            "library": (backend if name == "flash_fwd" else bwd_backend),
+            "library_by_backend_ms": (by_backend if name == "flash_fwd"
+                                      else bwd_by_backend),
             "max_abs_err": {
                 "flash_fwd": fwd_err,
                 "flash_bwd_dq": row["max_abs_err_dq"],
@@ -624,10 +761,18 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row):
         log("phase 4: %s at the training shape: %.4f ms, bound %.4f ms "
             "(%s; %.1f GFLOP, %.3f GB)" % (name, ms[name], bound, by,
                                           work[0] / 1e9, work[1] / 1e9))
-    records["flash_fwd"].update(library=backend,
-                                library_by_backend_ms=by_backend)
-    row.update(plain_bwd_ms=plain_bwd, sdpa_fwd_ms=sdpa_fwd_ms,
-               sdpa_bwd_ms=sdpa_bwd_ms, sdpa_fwd_by_backend_ms=by_backend,
+    if "dkv_old_new" in row:
+        records["flash_bwd_dkv"]["dkv_old_new"] = row["dkv_old_new"]
+    pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+    log("phase 4: K2 + K3 %.4f ms against SDPA's fastest backward (%s) "
+        "%.4f ms: %.2fx; backward by backend %s" % (
+            pair, bwd_backend, sdpa_bwd_ms, pair / sdpa_bwd_ms,
+            bwd_by_backend))
+    row.update(plain_bwd_ms=plain_bwd, sdpa_bwd_ms=sdpa_bwd_ms,
+               sdpa_bwd_backend=bwd_backend,
+               sdpa_bwd_by_backend_ms=bwd_by_backend,
+               sdpa_fwd_by_backend_ms=by_backend,
+               k2_k3_over_sdpa_bwd=pair / sdpa_bwd_ms,
                ms={n: r["ms"] for n, r in records.items()})
     return records
 
@@ -785,24 +930,27 @@ def phase5b_train(torch, llama, A, L, training):
     return launches
 
 
-def gmm_work(kernel, n, S, K, N, groups):
+def gmm_work(kernel, n, S, K, N, groups, out_bytes=2):
     """(operations, bytes) the least a grouped product must do for n routed
     rows: 2 n K N flop. Bytes: K5 ('gmm_fwd', x [S, K] @ w [G, K, N]) reads
     the n rows and the weights once and writes all S rows of y; K6
     ('gmm_dw', K = D, N = F) reads the n rows of x and of dy once and
-    writes the f32 dw."""
+    writes dw, out_bytes an element (2 in bf16, as the backward asks for
+    it; 4 in f32)."""
     flops = 2.0 * n * K * N
     if kernel == "gmm_fwd":
         return flops, 2.0 * (n * K + groups * K * N + S * N)
-    return flops, 2.0 * n * (K + N) + 4.0 * groups * K * N
+    return flops, 2.0 * n * (K + N) + out_bytes * groups * K * N
 
 
 def library_gmm(torch, x, w, dy, layout):
     """One PyTorch call for each of K5, K5 on the transposed weights and
-    K6 on the same inputs, as a yardstick of speed: torch._grouped_mm over
-    the active tiles' group offsets where the card's torch has it and takes
-    these operands, else a loop of torch.mm over the groups. Returns
-    ({'fwd', 'dx', 'dw': callable}, the name of what was used)."""
+    K6 (bf16 out, and f32 out where the call takes out_dtype) on the same
+    inputs, as a yardstick of speed: torch._grouped_mm over the active
+    tiles' group offsets where the card's torch has it and takes these
+    operands, else a loop of torch.mm over the groups. Returns
+    ({'fwd', 'dx', 'dw', 'dw_f32': callable or None}, the name of what was
+    used)."""
     tg, ta = layout["tile_group"], layout["tile_active"]
     groups = w.shape[0]
     rows = torch.bincount(tg[ta != 0].long(), minlength=groups) * 128
@@ -819,11 +967,26 @@ def library_gmm(torch, x, w, dy, layout):
         for fn in calls.values():
             fn()
         torch.cuda.synchronize()
-        return calls, "torch._grouped_mm (bf16 out)"
     except (AttributeError, NotImplementedError, RuntimeError, TypeError,
             ValueError) as e:
         log("phase 6: torch._grouped_mm refused (%s); timing a loop of "
             "torch.mm over the groups" % str(e).splitlines()[0])
+        calls = None
+    if calls is not None:
+        def dw_f32():
+            return torch._grouped_mm(xa.t(), dya, offs=offs,
+                                     out_dtype=torch.float32)
+
+        try:
+            dw_f32()
+            torch.cuda.synchronize()
+            calls["dw_f32"] = dw_f32
+        except (NotImplementedError, RuntimeError, TypeError,
+                ValueError) as e:
+            log("phase 6: torch._grouped_mm refused f32 out (%s)"
+                % str(e).splitlines()[0])
+            calls["dw_f32"] = None
+        return calls, "torch._grouped_mm"
     bounds = [0] + offs.tolist()
     spans = [(g, bounds[g], bounds[g + 1]) for g in range(groups)
              if bounds[g + 1] > bounds[g]]
@@ -833,50 +996,96 @@ def library_gmm(torch, x, w, dy, layout):
 
     calls = {"fwd": loop(lambda g, a, b: torch.mm(x[a:b], w[g])),
              "dx": loop(lambda g, a, b: torch.mm(dy[a:b], w[g].t())),
-             "dw": loop(lambda g, a, b: torch.mm(x[a:b].t(), dy[a:b]))}
+             "dw": loop(lambda g, a, b: torch.mm(x[a:b].t(), dy[a:b])),
+             "dw_f32": None}
     return calls, "a loop of torch.mm over the groups"
 
 
-def time_gmm_shape(torch, G, x, w, dy, layout, n_rows, with_plain):
-    """K5, K5 transposed (dx) and K6 times at one training shape, with
-    their bounds, the library calls' and (with_plain) the plain versions'
-    times and the largest |kernel - plain| of y and dw."""
+def time_gmm_shape(torch, G, x, w, dy, layout, n_rows, with_plain,
+                   baseline=None):
+    """K5, K5 transposed (dx) and K6 times at one training shape (K6 in
+    bf16 out, as the backward launches it, and in f32), with their bounds,
+    the library calls' and (with_plain) the plain versions' times and the
+    largest |kernel - plain| of y and dw; with a baseline library, the
+    earlier K6 (f32 out, then the backward's cast to bf16) in turns with
+    this one."""
     tg, ta = layout["tile_group"], layout["tile_active"]
     S, (groups, D, F) = x.shape[0], w.shape
+    bf16 = torch.bfloat16
     lib, lib_name = library_gmm(torch, x, w, dy, layout)
+
+    def dw_new():
+        return G._gmm_dw_cuda(x, dy, tg, ta, groups, out_dtype=bf16)
+
+    # K6's two outputs in turns, so that drift falls on both alike
+    dw_ms, dw_f32_ms, dw_turns = in_turns(
+        dw_new, lambda: G._gmm_dw_cuda(x, dy, tg, ta, groups), 10)
     rec = {
         "ms": cuda_ms(lambda: G._gmm_fwd_cuda(x, w, tg, ta), 10),
         "dx_ms": cuda_ms(lambda: G._gmm_fwd_cuda(
             dy, w, tg, ta, w_transposed=True), 10),
-        "dw_ms": cuda_ms(lambda: G._gmm_dw_cuda(x, dy, tg, ta, groups), 10),
+        "dw_ms": dw_ms, "dw_f32_ms": dw_f32_ms,
+        "dw_turns_ms": dw_turns,
         "library": lib_name,
         "library_ms": cuda_ms(lib["fwd"], 10),
         "library_dx_ms": cuda_ms(lib["dx"], 10),
-        "library_dw_ms": cuda_ms(lib["dw"], 10)}
-    for name, work in (("", gmm_work("gmm_fwd", n_rows, S, D, F, groups)),
-                       ("dx_", gmm_work("gmm_fwd", n_rows, S, F, D, groups)),
-                       ("dw_", gmm_work("gmm_dw", n_rows, S, D, F, groups))):
+        "library_dw_ms": cuda_ms(lib["dw"], 10),
+        "library_dw_f32_ms": (cuda_ms(lib["dw_f32"], 10)
+                              if lib["dw_f32"] else None)}
+    for name, work in (
+            ("", gmm_work("gmm_fwd", n_rows, S, D, F, groups)),
+            ("dx_", gmm_work("gmm_fwd", n_rows, S, F, D, groups)),
+            ("dw_", gmm_work("gmm_dw", n_rows, S, D, F, groups)),
+            ("dw_f32_", gmm_work("gmm_dw", n_rows, S, D, F, groups, 4))):
         rec[name + "bound_ms"], rec[name + "bound_by"] = bound_ms(
             work, tensor_cores=True)
         rec[name + "tflop"] = work[0] / 1e12
+    if baseline is not None:
+        def dw_old():
+            return baseline_gmm_dw(torch, G, baseline, x, dy, tg, ta, groups)
+
+        rec["dw_old_new"] = old_new_ms(lambda: dw_old().to(bf16), dw_new, 5)
+        rec["dw_f32_old_new"] = old_new_ms(dw_old, lambda: G._gmm_dw_cuda(
+            x, dy, tg, ta, groups), 5)
+        A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+        rec["dw_old_new"]["row_err_new_vs_old"] = A.flash_out_error(
+            G._gmm_dw_cuda(x, dy, tg, ta, groups), dw_old())
     if with_plain:
         rec["plain_ms"] = cuda_ms(lambda: G._gmm_fwd_plain(x, w, tg, ta), 3)
         rec["plain_dw_ms"] = cuda_ms(
             lambda: G._gmm_dw_plain(x, dy, tg, ta, groups), 3)
-        y, dw = G._gmm_fwd_cuda(x, w, tg, ta), G._gmm_dw_cuda(x, dy, tg, ta,
-                                                              groups)
+        y, dw = G._gmm_fwd_cuda(x, w, tg, ta), dw_new()
         rec["max_abs_err"] = (y.float() - G._gmm_fwd_plain(
             x, w, tg, ta).float()).abs().max().item()
-        rec["max_abs_err_dw"] = (dw - G._gmm_dw_plain(
+        rec["max_abs_err_dw"] = (dw.float() - G._gmm_dw_plain(
             x, dy, tg, ta, groups)).abs().max().item()
     return rec
 
 
-def phase6_gmm(torch, G, FC):
+def dw_bf16_counts(torch, G, x, dy, layout, groups):
+    """K6's bf16 output against its own f32 output and its plain
+    version's f32 sum, each rounded once: whether it equals the first bit
+    for bit, and how many elements equal the second, lie one bf16 ulp
+    from it, or further (sums that cancel, where the f32 sums' order moves
+    the result by more than an ulp of the small result)."""
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    got = G._gmm_dw_cuda(x, dy, tg, ta, groups, out_dtype=torch.bfloat16)
+    own = G._gmm_dw_cuda(x, dy, tg, ta, groups).to(torch.bfloat16)
+    ulps = G.bf16_ulps(got, G._gmm_dw_plain(x, dy, tg, ta, groups))
+    return {"equals_own_f32_rounded": bool(torch.equal(got, own)),
+            "elements": got.numel(),
+            "equal_to_plain_rounded": int((ulps == 0).sum()),
+            "one_ulp": int(((ulps > 0) & (ulps <= 1)).sum()),
+            "over_one_ulp": int((ulps > 1).sum()),
+            "max_ulps": ulps.max().item()}
+
+
+def phase6_gmm(torch, G, FC, baseline=None):
     """K5 and K6 against their plain versions at every case of
     FC.GMM_CASES (each output poisoned with NaN first, so a block left
-    unwritten shows), then the times at the two training shapes. Returns
-    {'gate_up': record, 'down': record}."""
+    unwritten shows), K6's bf16 output against its f32 one, then the times
+    at the training shapes (with a baseline library, the earlier K6 beside
+    this one). Returns {'gate_up', 'down', 'skewed': record}."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     records = {}
     for name, n, groups, D, F, dt, kind in FC.GMM_CASES:
@@ -884,7 +1093,8 @@ def phase6_gmm(torch, G, FC):
         readings = FC.gmm_case_readings(x, w, dy, layout)
         if dt == torch.bfloat16:
             limit = {"y": G.GMM_FWD_ROW_LIMIT, "dx": G.GMM_FWD_ROW_LIMIT,
-                     "dw": G.GMM_DW_ROW_LIMIT}
+                     "dw": G.GMM_DW_ROW_LIMIT,
+                     "dw_bf16": G.GMM_FWD_ROW_LIMIT}
         else:  # f32: within 1e-5 of the largest |plain|
             limit = {"y": 1.0, "dx": 1.0, "dw": 1.0}
         row = {"phase": 6, "case": name, "rows": n,
@@ -892,24 +1102,36 @@ def phase6_gmm(torch, G, FC):
                "dtype": str(dt).split(".")[-1], "readings": readings,
                "limit": limit,
                "active_tiles": int(layout["tile_active"].sum())}
-        if not all(v <= limit[k] for k, v in readings.items()):
+        ok = all(v <= limit[k] for k, v in readings.items())
+        if dt == torch.bfloat16:
+            row["dw_bf16"] = dw_bf16_counts(torch, G, x, dy, layout, groups)
+            ok = ok and row["dw_bf16"]["equals_own_f32_rounded"]
+        if not ok:
             log(json.dumps(row))
             raise AssertionError("K5/K6 disagree with their plain versions:"
                                  " %s" % json.dumps(row))
         if name.startswith("bf16_train"):
             key = name[len("bf16_train_"):]
             records[key] = time_gmm_shape(torch, G, x, w, dy, layout, n,
-                                          with_plain=key == "gate_up")
+                                          with_plain=key == "gate_up",
+                                          baseline=baseline)
             row["times"] = records[key]
             log("phase 6: %s: K5 %.3f ms (bound %.3f), K5 dx %.3f ms, K6 "
-                "%.3f ms (bound %.3f); %s fwd / dx / dw %.3f / %.3f / %.3f "
-                "ms" % (
+                "%.3f ms bf16 out / %.3f ms f32 out (bound %.3f); %s fwd / "
+                "dx / dw %.3f / %.3f / %.3f ms" % (
                     key, records[key]["ms"], records[key]["bound_ms"],
                     records[key]["dx_ms"], records[key]["dw_ms"],
-                    records[key]["dw_bound_ms"], records[key]["library"],
-                    records[key]["library_ms"],
+                    records[key]["dw_f32_ms"], records[key]["dw_bound_ms"],
+                    records[key]["library"], records[key]["library_ms"],
                     records[key]["library_dx_ms"],
                     records[key]["library_dw_ms"]))
+            if baseline is not None:
+                log("phase 6: %s: K6 earlier build + cast %.3f ms, this "
+                    "build bf16 out %.3f ms; f32 out %.3f / %.3f ms" % (
+                        key, records[key]["dw_old_new"]["old_ms"],
+                        records[key]["dw_old_new"]["new_ms"],
+                        records[key]["dw_f32_old_new"]["old_ms"],
+                        records[key]["dw_f32_old_new"]["new_ms"]))
         log(json.dumps(row))
         del x, w, dy, layout
         torch.cuda.empty_cache()
@@ -1019,6 +1241,8 @@ def checked_gmm(G, FC, run):
     """run() with every K5 and K6 launch held against the plain version on
     the same inputs; returns (run's result, {kernel: each launch's reading
     over its limit, GMM_FWD_ROW_LIMIT or GMM_DW_ROW_LIMIT})."""
+    import torch
+
     ratios = {"gmm_fwd": [], "gmm_dw": []}
     fwd, dw = G._gmm_fwd_cuda, G._gmm_dw_cuda
 
@@ -1029,11 +1253,14 @@ def checked_gmm(G, FC, run):
             / G.GMM_FWD_ROW_LIMIT)
         return y
 
-    def dw_checked(x, dy, tg, ta, groups):
-        out = dw(x, dy, tg, ta, groups)
-        ratios["gmm_dw"].append(FC.gmm_reading(
-            out, G._gmm_dw_plain(x, dy, tg, ta, groups), True)
-            / G.GMM_DW_ROW_LIMIT)
+    def dw_checked(x, dy, tg, ta, groups, out_dtype=torch.float32):
+        out = dw(x, dy, tg, ta, groups, out_dtype)
+        want = G._gmm_dw_plain(x, dy, tg, ta, groups, out_dtype)
+        # f32 out to GMM_DW_ROW_LIMIT; an output rounded to bf16, against
+        # the plain sum rounded once, to K5's limit as a bf16 output
+        limit = (G.GMM_DW_ROW_LIMIT if out_dtype == torch.float32
+                 else G.GMM_FWD_ROW_LIMIT)
+        ratios["gmm_dw"].append(FC.gmm_reading(out, want, True) / limit)
         return out
 
     with gmm_route(G, fwd_checked, dw_checked):
@@ -1058,8 +1285,10 @@ KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
                             "flash_fwd_f32_kernel<128, true>",
                             "flash_fwd_f32_kernel<64, true>")),
     ("K5 gmm_fwd", ("gmm_fwd_wgmma", "gmm_fwd_f32")),
-    ("K6 gmm_dw", ("gmm_dw_bf16", "gmm_dw_f32")),
-    ("K1-K3 flash", ("flash_fwd", "flash_bwd")),
+    ("K6 gmm_dw", ("gmm_dw_wgmma", "gmm_dw_f32")),
+    ("K3 flash_bwd_dkv", ("flash_bwd_dkv",)),
+    ("K2 flash_bwd_dq", ("flash_bwd_dq",)),
+    ("K1 flash_fwd", ("flash_fwd",)),
     ("cuBLAS products", ("nvjet", "gemm", "xmma", "cutlass", "sm90_",
                          "sm80_")),
     ("optimizer and other elementwise", ("elementwise", "vectorized",
@@ -1584,9 +1813,16 @@ def phase8e_prefill_ring(torch, llama, A, R, L):
     return launches, result
 
 
-def main():
+def main(argv=None):
     import torch
 
+    args = list(sys.argv[1:] if argv is None else argv)
+    baseline_root = None
+    if args[:1] == ["--baseline"] and len(args) == 2:
+        baseline_root = args[1]
+    elif args:
+        print("usage: chip_smoke.py [--baseline CHECKOUT]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1618,8 +1854,19 @@ def main():
     sources = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS
                       if k.get("source")})
     t = time.perf_counter()
-    _build.build_all(sources)  # one nvcc per source, started together
-    log("kernel builds: %.1fs for %s" % (time.perf_counter() - t, sources))
+    jobs = _build.start_builds(sources)  # one nvcc per source, together
+    if baseline_root is not None:  # the earlier K3 and K6, for phases 4, 6
+        jobs += _build.start_builds(
+            ["flash_bwd", "gmm"], csrc=_baseline_csrc(baseline_root),
+            build_dir=_build.BUILD_DIR / "baseline")
+    _build.finish_builds(jobs)
+    log("kernel builds: %.1fs for %s%s" % (
+        time.perf_counter() - t, sources,
+        "" if baseline_root is None
+        else " and the earlier flash_bwd, gmm of %s" % baseline_root))
+    baseline = {} if baseline_root is None else {
+        name: baseline_library(_build, baseline_root, name)
+        for name in ("flash_bwd", "gmm")}
     for name in sources:
         info = _build.build_info(name)
         log("%s: %s in %.1fs (%s)" % (
@@ -1646,7 +1893,7 @@ def main():
     del params  # the 8B weights: phases 4 and 5 need the memory
     gc.collect()
     torch.cuda.empty_cache()
-    records = phase4_backward(A, torch)
+    records = phase4_backward(A, torch, baseline.get("flash_bwd"))
     log("phase 4 done at %.1fs" % (time.perf_counter() - start))
     phase5a_exact_grads(torch, llama, A, L, leaves)
     log("phase 5a done at %.1fs" % (time.perf_counter() - start))
@@ -1654,7 +1901,7 @@ def main():
     log("phase 5b done at %.1fs" % (time.perf_counter() - start))
     gc.collect()  # bench_1b's state: the Mixtral phases need the memory
     torch.cuda.empty_cache()
-    gmm_records = phase6_gmm(torch, G, FC)
+    gmm_records = phase6_gmm(torch, G, FC, baseline.get("gmm"))
     log("phase 6 done at %.1fs" % (time.perf_counter() - start))
     phase7a_exact_grads(torch, mixtral, L, G, M, leaves)
     gc.collect()
@@ -1737,16 +1984,29 @@ def main():
                     library_dx_ms=up["library_dx_ms"],
                     library_down_dx_ms=down["library_dx_ms"])
             else:
+                skewed = gmm_records["skewed"]
                 line.update(
                     launches=moe_launches["gmm_dw"],
                     max_abs_err=up["max_abs_err_dw"], ms=up["dw_ms"],
                     plain_ms=up["plain_dw_ms"], bound_ms=up["dw_bound_ms"],
                     bound_by=up["dw_bound_by"],
-                    library_ms=up["library_dw_ms"], library=up["library"],
-                    shape="dw of the gate/up weights: " + shape,
+                    library_ms=up["library_dw_ms"],
+                    library=up["library"] + ", bf16 out as K6's",
+                    shape="dw of the gate/up weights, bf16 out: " + shape,
+                    f32_out_ms=up["dw_f32_ms"],
+                    f32_out_bound_ms=up["dw_f32_bound_ms"],
+                    library_f32_out_ms=up["library_dw_f32_ms"],
                     down_ms=down["dw_ms"],
                     down_bound_ms=down["dw_bound_ms"],
-                    library_down_ms=down["library_dw_ms"])
+                    library_down_ms=down["library_dw_ms"],
+                    skewed_ms=skewed["dw_ms"],
+                    skewed_bound_ms=skewed["dw_bound_ms"],
+                    library_skewed_ms=skewed["library_dw_ms"])
+                if "dw_old_new" in up:
+                    line.update(
+                        earlier_build_with_cast_ms=up["dw_old_new"]["old_ms"],
+                        earlier_build_f32_out_ms=up["dw_f32_old_new"][
+                            "old_ms"])
             ported.append(line)
             continue
         rec = records[k["name"]]
@@ -1770,9 +2030,14 @@ def main():
             line["library"] = "SDPA forward, %s backend (the fastest of %s)" \
                 % (rec["library"], rec["library_by_backend_ms"])
         else:
-            line["library"] = "SDPA backward: dq, dk, dv together"
+            line["library"] = (
+                "SDPA backward (dq, dk, dv together), %s backend (the "
+                "fastest of %s)" % (rec["library"],
+                                    rec["library_by_backend_ms"]))
             line["plain"] = "the plain backward: dq, dk, dv together"
             line["launches_ring_8k_step"] = ring_launches[k["name"]] // 5
+            if "dkv_old_new" in rec:
+                line["earlier_build_ms"] = rec["dkv_old_new"]["old_ms"]
         ported.append(line)
     log(card_line())
     log(json.dumps({"kernels": ported, "not_yet_ported": not_yet}))

@@ -62,17 +62,19 @@ def start_builds(names, csrc=None, build_dir=None):
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+        jobs.append((name, src, out, tmp, proc, time.perf_counter(),
+                     csrc is None))
     return jobs
 
 
 def finish_builds(jobs):
     """Wait for the nvcc runs of start_builds; raises if any failed."""
     failed = []
-    for name, src, out, tmp, proc, start in jobs:
+    for name, src, out, tmp, proc, start, package in jobs:
         log = proc.communicate()[0]
-        _BUILT[name] = {"built": True, "log": log,
-                        "seconds": time.perf_counter() - start}
+        if package:  # what build_info reports for the package's library
+            _BUILT[name] = {"built": True, "log": log,
+                            "seconds": time.perf_counter() - start}
         if proc.returncode != 0:
             failed.append("nvcc failed on %s:\n%s" % (src, log))
         else:

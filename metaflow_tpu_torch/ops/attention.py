@@ -349,9 +349,11 @@ def _flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal):
 # by the bf16 roundings of dS and P that those flip: one flip moves a row
 # by half to one ulp of a term, which is most of the row in the early
 # causal rows that sum a few keys. On an H100 the sound kernels read at
-# most 1.98 (chip_smoke.py's phase-4 shapes; 0.02 inside the bench_1b
-# training step); faults planted by ops/fault_check.py read 7.9 (P at 4
-# mantissa bits in K3) to 8e8 (K2's causal mask dropped).
+# most 1.98 for K2 and 0.73 for K3's wgmma body (chip_smoke.py's phase-4
+# shapes; under 0.01 inside the bench_1b training step); faults planted
+# by ops/fault_check.py read 8.8 (P at 4 mantissa bits in K3) and 11.2
+# (dS at 4 mantissa bits in K2) up to 8e8 (K2's causal mask dropped) and
+# inf (K3's phase bit not flipped: the watchdog's trap).
 FLASH_BWD_ROW_LIMIT = 4.0
 
 

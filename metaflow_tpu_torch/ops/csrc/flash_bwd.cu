@@ -11,7 +11,7 @@
 //
 // K3, flash_bwd_dkv, replaces `_flash_bwd_dkv_kernel`:
 //   dv = sum over queries of P^T dO,  dk = sum over queries of dS^T q.
-// One block owns 64 keys of one (batch, kv head) and walks the q tiles of
+// A work item owns 64 keys of one (batch, kv head) and walks the q tiles of
 // every q head of that kv head's GQA group, from the diagonal when causal.
 // The group sum that the JAX package gets from the transpose of its kv-head
 // repeat happens here in the f32 accumulators: no per-q-head buffer, no
@@ -32,26 +32,30 @@
 // 3.35 TB/s, so both are bound by operations. The training step launches
 // each once per layer (16 times for bench_1b).
 //
-// What the design does about that bound: every product runs on the tensor
-// cores (mma.sync m16n8k16 bf16 -> f32, operands fetched with ldmatrix);
-// the tile a block owns stays in shared memory (K2: q and dO; K3: k and v)
-// while the other side streams through a two-stage cp.async pipeline; the
-// score and probability fragments are turned into the next product's A
-// operand in registers; tiles wholly past the diagonal are skipped and the
-// blocks with the most causal work are launched first. wgmma, TMA and warp
-// specialisation are left to later work. The float32 path (tests and the
-// exact-gradient check, off the bf16 training path) uses plain FMA with one
-// warp per row.
+// What the designs do about that bound. K3 is built for Hopper's full
+// rate, on K1's machinery (csrc/hopper.cuh): wgmma with the sums in
+// registers, fed by TMA through a ring of swizzled stages on mbarriers by
+// a producer warp, persistent blocks (see its section below). K2 keeps the
+// first design: every product on mma.sync m16n8k16 bf16 -> f32 with
+// ldmatrix fetches, its 64 q rows' q and dO in shared memory while the key
+// tiles stream through a two-stage cp.async pipeline, the score fragments
+// turned into the next product's A operand in registers, the blocks with
+// the most causal work launched first; its move onto K3's body is left to
+// later work. Both skip tiles wholly past the diagonal. The float32 path
+// (tests and the exact-gradient check, off the bf16 training path) uses
+// plain FMA with one warp per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace tile_mma;
 
 struct Params {
@@ -241,187 +245,252 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K3, bf16: dk, dv for 64 keys, q tiles of 32 streamed over the GQA group
+// K3, bf16: wgmma kernel, warp-specialised and persistent
 // ---------------------------------------------------------------------------
+//
+// One block per SM walks the work items, (64 keys, batch and kv head), the
+// earliest key blocks (the most causal work) first. Warpgroup 0 is the
+// producer: one warp loads each item's K and V tiles, which stay in shared
+// memory for the item, and streams the Q and dO tiles of 64 q rows of every
+// q head of the kv head's GQA group (from the diagonal when causal) through
+// a ring of KV_STAGES stages, all by TMA from 4D tensor maps over
+// [B, S, heads, D] with the wrapper's strides (rows past S zero-filled);
+// its lanes copy each tile's lse (in log2 units) and delta rows beside it.
+// K and V, and each stage, have their own full and empty mbarriers, so the
+// next item's tiles load while the consumer finishes the current one.
+// Warpgroup 1 is the consumer, all 64 keys: per q tile it runs
+// S^T = K Q^T and dP^T = V dO^T as wgmma m64n64k16 with both operands
+// K-major in shared memory, forms P^T = exp(scale S^T - lse) and
+// dS^T = P^T (dP^T - delta) scale in its registers, and runs
+// dV += P^T dO and dK += dS^T Q as wgmma m64nDk16 with P^T and dS^T (in
+// bf16) as the register operand and dO, Q MN-major (the transpose bit).
+// dK and dV stay in registers over the item (D/2 f32 each a thread) and
+// are written once in f32. One consumer warpgroup under
+// __launch_bounds__(256, 1) may use up to 255 registers a thread: dK, dV,
+// S^T and dP^T alone take 2 * D/2 + 64 = 192 at D 128 (239 in all, no
+// spills). The tensor cores idle while it computes P^T and dS^T, but that
+// work costs about 5 % (scripts/k3_controls.py): the m64n64 products
+// themselves hold the kernel, and two consumer warpgroups under
+// setmaxnreg, sharing or splitting the work, measured no faster.
 
-constexpr int DKV_BN = 64;
-constexpr int DKV_BM = 32;
+constexpr int KV_BN = 64;          // keys of a work item
+constexpr int KV_BM = 64;          // q rows of a streamed tile
+constexpr int KV_STAGES = 3;       // of the Q / dO ring
+constexpr int KV_THREADS = 256;    // producer and consumer warpgroups
+constexpr int KV_BOX = 64 * 128;   // bytes of one [64 rows][64 d] box
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkv_bf16_kernel(Params p) {
-  constexpr int LD = D + PAD;
-  constexpr int CPR = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + DKV_BN * LD;
-  __nv_bfloat16* sQ = sV + DKV_BN * LD;      // [2][DKV_BM][LD]
-  __nv_bfloat16* sG = sQ + 2 * DKV_BM * LD;  // [2][DKV_BM][LD]
-  float* sL = reinterpret_cast<float*>(sG + 2 * DKV_BM * LD);  // [2][BM]
-  float* sD = sL + 2 * DKV_BM;                                 // [2][BM]
+constexpr int kv_smem_bytes() {  // tiles, lse and delta rows, barriers
+  return 1024 + (2 + 2 * KV_STAGES) * (D / 64) * KV_BOX +
+         2 * KV_STAGES * KV_BM * 4 + (2 + 2 * KV_STAGES) * 8;
+}
 
-  const int kb = blockIdx.x;  // key tile 0 has the most causal work
-  const int bkv = blockIdx.y;
-  const int b = bkv / p.KV, kvh = bkv % p.KV;
-  const int group = p.H / p.KV;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = kb * DKV_BN;
-  const int S = p.S;
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_g,
+                               Params p, int bkv_count) {
+  constexpr int TILE_BYTES = (D / 64) * KV_BOX;  // K, V, or a stage's Q, dO
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = align_1024(smem_raw);
+  unsigned char* sV = sK + TILE_BYTES;
+  unsigned char* sQ = sV + TILE_BYTES;              // [KV_STAGES]
+  unsigned char* sG = sQ + KV_STAGES * TILE_BYTES;  // [KV_STAGES], dO
+  float* sL = reinterpret_cast<float*>(sG + KV_STAGES * TILE_BYTES);
+  float* sD = sL + KV_STAGES * KV_BM;  // [KV_STAGES][KV_BM] each
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sD + KV_STAGES * KV_BM);
+  uint64_t* empty_kv = full_kv + 1;
+  uint64_t* full = full_kv + 2;         // [KV_STAGES]
+  uint64_t* empty = full + KV_STAGES;   // [KV_STAGES]
 
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  for (int c = tid; c < DKV_BN * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8, row = k0 + r;
-    const bool ok = row < S;
-    const long long rr = ok ? row : 0;
-    cp_async_16(sK + r * LD + col, kg + rr * p.k_ss + col, ok);
-    cp_async_16(sV + r * LD + col, vg + rr * p.v_ss + col, ok);
+  const int S = p.S, group = p.H / p.KV;
+  const int n_qt = (S + KV_BM - 1) / KV_BM;
+  const int n_items = (S + KV_BN - 1) / KV_BN * bkv_count;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    mbar_init(empty_kv, 1);  // the consumer's thread 0
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(&full[s], 32);  // every producer lane (lse, delta rows)
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  const int first_qt = p.causal ? k0 / DKV_BM : 0;
-  const int n_qt = (S + DKV_BM - 1) / DKV_BM;
-  const int per_head = n_qt - first_qt;
-  const int n_iter = group * per_head;
-
-  // iteration it: q head kvh * group + it / per_head, q tile
-  // first_qt + it % per_head
-  auto load_q = [&](int it, int stage) {
-    const int h = kvh * group + it / per_head;
-    const int q0 = (first_qt + it % per_head) * DKV_BM;
-    const __nv_bfloat16* qg =
-        static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* gg =
-        static_cast<const __nv_bfloat16*>(p.g) + b * p.g_sb + h * p.g_sh;
-    __nv_bfloat16* dQ = sQ + stage * DKV_BM * LD;
-    __nv_bfloat16* dG = sG + stage * DKV_BM * LD;
-    for (int c = tid; c < DKV_BM * CPR; c += NTHREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8, row = q0 + r;
-      const bool ok = row < S;
-      const long long rr = ok ? row : 0;
-      cp_async_16(dQ + r * LD + col, qg + rr * p.q_ss + col, ok);
-      cp_async_16(dG + r * LD + col, gg + rr * p.g_ss + col, ok);
-    }
-    // lse (in log2 units) and delta; rows past S are masked below
-    const long long stat = static_cast<long long>(b * p.H + h) * S;
-    if (tid < 2 * DKV_BM) {
-      const int r = tid % DKV_BM, row = q0 + r;
-      const bool ok = row < S;
-      if (tid < DKV_BM)
-        sL[stage * DKV_BM + r] = ok ? p.lse[stat + row] * kLog2e : 0.f;
-      else
-        sD[stage * DKV_BM + r] = ok ? p.delta[stat + row] : 0.f;
-    }
-  };
-
-  const float scale_log2 = p.scale * kLog2e;
-  const int key_a = k0 + warp * 16 + g;  // this thread's two keys
-  const int key_b = key_a + 8;
-  float dk[D / 8][4], dv[D / 8][4];
+  if (threadIdx.x < 128) {  // the producer warpgroup: one warp loads
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;  // q tiles loaded so far, across items
+    for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
+      const int kb = i / bkv_count, bkv = i % bkv_count;
+      const int b = bkv / p.KV, kvh = bkv % p.KV;
+      if (lane == 0) {
+        mbar_wait(empty_kv, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(full_kv, 2 * TILE_BYTES);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();  // with the k, v tile
-  for (int it = 0; it < n_iter; ++it) {
-    if (it + 1 < n_iter) {
-      load_q(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (first_qt + it % per_head) * DKV_BM;
-    const __nv_bfloat16* cQ = sQ + (it & 1) * DKV_BM * LD;
-    const __nv_bfloat16* cG = sG + (it & 1) * DKV_BM * LD;
-    const float* cL = sL + (it & 1) * DKV_BM;
-    const float* cD = sD + (it & 1) * DKV_BM;
-
-    // s^T = k q^T and dp^T = v dO^T for this warp's 16 keys x DKV_BM rows
-    float st[DKV_BM / 8][4], dpt[DKV_BM / 8][4];
-#pragma unroll
-    for (int j = 0; j < DKV_BM / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sK, LD, warp * 16, kk * 16, lane);
-      load_a(va, sV, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < DKV_BM / 16; ++np) {
-        uint32_t bq[4], bg[4];
-        load_b_nk(bq, cQ, LD, np * 16, kk * 16, lane);
-        mma_bf16(st[2 * np], ka, bq[0], bq[1]);
-        mma_bf16(st[2 * np + 1], ka, bq[2], bq[3]);
-        load_b_nk(bg, cG, LD, np * 16, kk * 16, lane);
-        mma_bf16(dpt[2 * np], va, bg[0], bg[1]);
-        mma_bf16(dpt[2 * np + 1], va, bg[2], bg[3]);
-      }
-    }
-
-    // p^T = exp(scale s^T - lse), masked (kept in st);
-    // ds^T = p^T (dp^T - delta) scale (kept in dpt)
-    const bool masked =
-        (q0 + DKV_BM > S) || (p.causal && q0 < k0 + warp * 16 + 15);
-#pragma unroll
-    for (int j = 0; j < DKV_BM / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + t4 * 2 + (e & 1);
-        float pv = exp2f(fmaf(st[j][e], scale_log2, -cL[col]));
-        if (masked) {
-          const int qpos = q0 + col;
-          const int key = (e >> 1) ? key_b : key_a;
-          if (qpos >= S || (p.causal && qpos < key)) pv = 0.f;
+        for (int d = 0; d < D / 64; ++d) {
+          tma_load_4d(sK + d * KV_BOX, &tm_k, full_kv, d * 64, kvh,
+                      kb * KV_BN, b);
+          tma_load_4d(sV + d * KV_BOX, &tm_v, full_kv, d * 64, kvh,
+                      kb * KV_BN, b);
         }
-        st[j][e] = pv;
-        dpt[j][e] = pv * (dpt[j][e] - cD[col]) * p.scale;
+      }
+      const int first_qt = p.causal ? kb * KV_BN / KV_BM : 0;
+      const int per_head = n_qt - first_qt;
+      const int n_iter = group * per_head;  // K3's q tiles of this item
+      for (int n = 0; n < n_iter; ++n, ++it) {
+        const int st = it % KV_STAGES;
+        mbar_wait(&empty[st], ((it / KV_STAGES) & 1) ^ 1);
+        const int h = kvh * group + n / per_head;
+        const int q0 = (first_qt + n % per_head) * KV_BM;
+        const long long stat = static_cast<long long>(b * p.H + h) * S;
+        for (int r = lane; r < KV_BM; r += 32) {
+          const int row = q0 + r;
+          sL[st * KV_BM + r] = row < S ? p.lse[stat + row] * kLog2e : 0.f;
+          sD[st * KV_BM + r] = row < S ? p.delta[stat + row] : 0.f;
+        }
+        if (lane == 0) {  // its arrival, with the tiles' bytes
+          mbar_arrive_expect_tx(&full[st], 2 * TILE_BYTES);
+#pragma unroll
+          for (int d = 0; d < D / 64; ++d) {
+            tma_load_4d(sQ + st * TILE_BYTES + d * KV_BOX, &tm_q, &full[st],
+                        d * 64, h, q0, b);
+            tma_load_4d(sG + st * TILE_BYTES + d * KV_BOX, &tm_g, &full[st],
+                        d * 64, h, q0, b);
+          }
+        } else {
+          mbar_arrive(&full[st]);
+        }
       }
     }
+  } else {  // the consumer warpgroup: the item's 64 keys
+    const int tid = threadIdx.x - 128, warp = tid / 32, lane = tid % 32;
+    const int t4 = lane & 3;
+    const float scale_log2 = p.scale * kLog2e;
+    float sp[KV_BM / 2];   // S^T, then P^T: 64 keys x 64 q rows
+    float dps[KV_BM / 2];  // dP^T, then dS^T
+    uint32_t pa[KV_BM / 16][4], da[KV_BM / 16][4];  // their bf16 A operands
+    float dk[D / 2], dv[D / 2];
+    int it = 0;  // q tiles consumed so far, across items
+    for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
+      const int kb = i / bkv_count, bkv = i % bkv_count;
+      const int b = bkv / p.KV, kvh = bkv % p.KV;
+      const int k0 = kb * KV_BN;
+      const int key_a = k0 + warp * 16 + lane / 4, key_b = key_a + 8;
+      const int first_qt = p.causal ? kb * KV_BN / KV_BM : 0;
+      const int per_head = n_qt - first_qt;
+      const int n_iter = group * per_head;
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) dk[e] = dv[e] = 0.f;
+      mbar_wait(full_kv, j & 1);
 
-    // dv += p^T dO with p rounded to bf16; dk += ds^T q with ds rounded
+      for (int n = 0; n < n_iter; ++n, ++it) {
+        const int st = it % KV_STAGES;
+        mbar_wait(&full[st], (it / KV_STAGES) & 1);
+        const unsigned char* cQ = sQ + st * TILE_BYTES;
+        const unsigned char* cG = sG + st * TILE_BYTES;
+        const float* cL = sL + st * KV_BM;
+        const float* cD = sD + st * KV_BM;
+
+        // S^T = K Q^T and dP^T = V dO^T, both operands K-major
+        fence_operand(sp);
+        fence_operand(dps);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DKV_BM / 16; ++kk) {
-      uint32_t ap[4], ad[4];
-      c_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-      c_to_a(ad, dpt[2 * kk], dpt[2 * kk + 1]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk / 4) * KV_BOX + (kk % 4) * 32;
+          wgmma_m64n64k16_ss<0>(sp, desc_k_major(sK + off),
+                                desc_k_major(cQ + off), kk > 0);
+        }
 #pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t bg[4], bq[4];
-        load_b_kn(bg, cG, LD, kk * 16, dp2 * 16, lane);
-        mma_bf16(dv[2 * dp2], ap, bg[0], bg[1]);
-        mma_bf16(dv[2 * dp2 + 1], ap, bg[2], bg[3]);
-        load_b_kn(bq, cQ, LD, kk * 16, dp2 * 16, lane);
-        mma_bf16(dk[2 * dp2], ad, bq[0], bq[1]);
-        mma_bf16(dk[2 * dp2 + 1], ad, bq[2], bq[3]);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk / 4) * KV_BOX + (kk % 4) * 32;
+          wgmma_m64n64k16_ss<0>(dps, desc_k_major(sV + off),
+                                desc_k_major(cG + off), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(sp);
+        fence_operand(dps);
+
+        // P^T = exp(scale S^T - lse), masked; dS^T = P^T (dP^T - delta)
+        // scale; each rounded to bf16 as the next products' A operand
+        // (accumulator layout = register A layout: q groups 2kk, 2kk + 1
+        // form k16 step kk)
+        const int q0 = (first_qt + n % per_head) * KV_BM;
+        const bool masked =
+            (q0 + KV_BM > S) || (p.causal && q0 < k0 + KV_BN);
+#pragma unroll
+        for (int jj = 0; jj < KV_BM / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = jj * 8 + t4 * 2 + (e & 1);
+            float pv = fast_exp2(fmaf(sp[4 * jj + e], scale_log2, -cL[col]));
+            if (masked) {
+              const int qpos = q0 + col;
+              const int key = (e >> 1) ? key_b : key_a;
+              if (qpos >= S || (p.causal && qpos < key)) pv = 0.f;
+            }
+            sp[4 * jj + e] = pv;
+            dps[4 * jj + e] = pv * (dps[4 * jj + e] - cD[col]) * p.scale;
+          }
+          pa[jj / 2][(jj & 1) * 2] = pack_bf16(sp[4 * jj], sp[4 * jj + 1]);
+          pa[jj / 2][(jj & 1) * 2 + 1] =
+              pack_bf16(sp[4 * jj + 2], sp[4 * jj + 3]);
+          da[jj / 2][(jj & 1) * 2] = pack_bf16(dps[4 * jj], dps[4 * jj + 1]);
+          da[jj / 2][(jj & 1) * 2 + 1] =
+              pack_bf16(dps[4 * jj + 2], dps[4 * jj + 3]);
+        }
+
+        // dV += P^T dO and dK += dS^T Q: dO, Q [64 q][D] are B, MN-major
+        fence_operand(dv);
+        fence_operand(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KV_BM / 16; ++kk) {
+          const uint64_t dg = desc_mn_major(cG + kk * 16 * 128, KV_BOX);
+          if constexpr (D == 128)
+            wgmma_m64n128k16_rs<1>(dv, pa[kk], dg, 1);
+          else
+            wgmma_m64n64k16_rs<1>(dv, pa[kk], dg, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < KV_BM / 16; ++kk) {
+          const uint64_t dq = desc_mn_major(cQ + kk * 16 * 128, KV_BOX);
+          if constexpr (D == 128)
+            wgmma_m64n128k16_rs<1>(dk, da[kk], dq, 1);
+          else
+            wgmma_m64n64k16_rs<1>(dk, da[kk], dq, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dv);
+        fence_operand(dk);
+        if (tid == 0) mbar_arrive(&empty[st]);  // the stage, read for good
       }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-  if (n_iter == 0) cp_async_wait<0>();
+      if (tid == 0) mbar_arrive(empty_kv);  // K and V, read for good
 
-  float* dkg = p.dk + b * p.dk_sb + kvh * p.dk_sh;
-  float* dvg = p.dv + b * p.dk_sb + kvh * p.dk_sh;
+      float* dkg = p.dk + b * p.dk_sb + kvh * p.dk_sh;
+      float* dvg = p.dv + b * p.dk_sb + kvh * p.dk_sh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t4 * 2;
-    if (key_a < S) {
-      *reinterpret_cast<float2*>(dkg + key_a * p.dk_ss + col) =
-          make_float2(dk[n][0], dk[n][1]);
-      *reinterpret_cast<float2*>(dvg + key_a * p.dk_ss + col) =
-          make_float2(dv[n][0], dv[n][1]);
-    }
-    if (key_b < S) {
-      *reinterpret_cast<float2*>(dkg + key_b * p.dk_ss + col) =
-          make_float2(dk[n][2], dk[n][3]);
-      *reinterpret_cast<float2*>(dvg + key_b * p.dk_ss + col) =
-          make_float2(dv[n][2], dv[n][3]);
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = jj * 8 + t4 * 2;
+        if (key_a < S) {
+          *reinterpret_cast<float2*>(dkg + key_a * p.dk_ss + col) =
+              make_float2(dk[4 * jj], dk[4 * jj + 1]);
+          *reinterpret_cast<float2*>(dvg + key_a * p.dk_ss + col) =
+              make_float2(dv[4 * jj], dv[4 * jj + 1]);
+        }
+        if (key_b < S) {
+          *reinterpret_cast<float2*>(dkg + key_b * p.dk_ss + col) =
+              make_float2(dk[4 * jj + 2], dk[4 * jj + 3]);
+          *reinterpret_cast<float2*>(dvg + key_b * p.dk_ss + col) =
+              make_float2(dv[4 * jj + 2], dv[4 * jj + 3]);
+        }
+      }
     }
   }
 }
@@ -618,27 +687,64 @@ cudaError_t launch_dq(const Params& p, int B, int dtype, cudaStream_t st) {
                 F32_ROWS * 32, 0, p, st);
 }
 
+// The 4D tensor map of a [B, S, heads, D] bf16 tensor read through its
+// element strides: boxes of 64 columns of one head and KV_BM rows.
+cudaError_t make_rows_map(CUtensorMap* map, const void* base, int B, int S,
+                          int heads, int D, long long sb, long long ss,
+                          long long sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, KV_BM, 1};
+  return make_map_bf16(map, base, 4, dims, strides, box);
+}
+
+// K3: in bf16 the tensor maps (encoding reads no device memory), then one
+// persistent block per SM, at most one per work item; in f32 the FMA
+// kernel.
 template <int D>
-cudaError_t launch_dkv(const Params& p, int B, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    constexpr int smem =
-        (2 * DKV_BN + 4 * DKV_BM) * (D + PAD) * 2 + 4 * DKV_BM * 4;
-    return launch(flash_bwd_dkv_bf16_kernel<D>,
-                  dim3((p.S + DKV_BN - 1) / DKV_BN, B * p.KV), NTHREADS,
-                  smem, p, st);
-  }
-  return launch(flash_bwd_dkv_f32_kernel<D>,
-                dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.KV),
-                F32_ROWS * 32, 0, p, st);
+cudaError_t launch_dkv(const Params& p, int B, int dtype, int device,
+                       cudaStream_t st) {
+  if (dtype != 1)
+    return launch(flash_bwd_dkv_f32_kernel<D>,
+                  dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.KV),
+                  F32_ROWS * 32, 0, p, st);
+  CUtensorMap tm_q, tm_k, tm_v, tm_g;
+  cudaError_t err = make_rows_map(&tm_q, p.q, B, p.S, p.H, D, p.q_sb,
+                                  p.q_ss, p.q_sh);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_k, p.k, B, p.S, p.KV, D, p.k_sb, p.k_ss, p.k_sh);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_v, p.v, B, p.S, p.KV, D, p.v_sb, p.v_ss, p.v_sh);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_g, p.g, B, p.S, p.H, D, p.g_sb, p.g_ss, p.g_sh);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = kv_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int items = (p.S + KV_BN - 1) / KV_BN * B * p.KV;
+  const int sms = sm_count(device);
+  const int grid = items < sms ? items : sms;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  flash_bwd_dkv_wgmma_kernel<D>
+      <<<grid, KV_THREADS, smem, st>>>(tm_q, tm_k, tm_v, tm_g, p, B * p.KV);
+  return cudaGetLastError();
 }
 
 cudaError_t dispatch(const Params& p, int B, int D, int dtype, bool dq,
-                     cudaStream_t st) {
+                     int device, cudaStream_t st) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  if (B == 0 || p.S == 0 || p.H == 0) return cudaSuccess;
   if (D == 128) return dq ? launch_dq<128>(p, B, dtype, st)
-                          : launch_dkv<128>(p, B, dtype, st);
+                          : launch_dkv<128>(p, B, dtype, device, st);
   if (D == 64) return dq ? launch_dq<64>(p, B, dtype, st)
-                         : launch_dkv<64>(p, B, dtype, st);
+                         : launch_dkv<64>(p, B, dtype, device, st);
   return cudaErrorInvalidValue;
 }
 
@@ -684,7 +790,7 @@ static int run(FLASH_BWD_ARGS, bool dq) {
   p.scale = scale;
   p.causal = causal;
   return static_cast<int>(
-      dispatch(p, B, D, dtype, dq, static_cast<cudaStream_t>(stream)));
+      dispatch(p, B, D, dtype, dq, device, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
@@ -699,4 +805,9 @@ extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
              q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, g_sb, g_ss,
              g_sh, out_sb, out_ss, out_sh, scale, causal, device, stream,
              false);
+}
+
+// The dynamic shared memory of one bf16 K3 block at head dim D, in bytes.
+extern "C" int flash_bwd_dkv_smem_bytes(int D) {
+  return D == 128 ? kv_smem_bytes<128>() : kv_smem_bytes<64>();
 }

@@ -317,16 +317,6 @@ constexpr int fa_smem_bytes() {  // Q, the K/V stages, the barriers
          (2 + 4 * FA_STAGES) * 8;
 }
 
-// 2^x by the special-function unit alone (ex2.approx.ftz: relative error
-// about 2^-22, subnormal results flushed to 0); exp2f adds the subnormal
-// handling, which the softmax, bound by these units, pays for on every
-// score.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Work item i of a grid of n_qb q blocks x bh (batch, head) pairs: the
 // heaviest q blocks first.
 __device__ __forceinline__ void fa_item(int i, int n_qb, int bh_count,

@@ -12,39 +12,36 @@
 //
 // K6 `gmm_dw` replaces `_gmm_dw_kernel` (launched by `_gmm_dw_call`):
 // dw[g] = sum over the active tiles i of group g of x[tile i]^T dy[tile i],
-// in f32. The TPU kernel walks the tiles in grid order and revisits one
-// output block across a group's consecutive tiles; a CUDA grid has no
-// order. Here one block owns one (group, 128-row D block, 128-column F
-// block): it finds its group's tile range by binary search over
-// tile_group (non-decreasing, as the layout makes it), loops over the
-// active tiles of that range with the sum in registers, and writes its
-// block once. No atomics, no second pass; a group with no active tile
-// writes zeros (the JAX backward's `visited` mask).
+// with f32 sums, written in f32 or rounded once to bf16. The TPU kernel
+// walks the tiles in grid order and revisits one output block across a
+// group's consecutive tiles; a CUDA grid has no order. Here one work item
+// owns one (group, 128-row D block, 256-column F block): it finds its
+// group's tile range by binary search over tile_group (non-decreasing, as
+// the layout makes it), walks the active tiles of that range with the sum
+// in registers, and writes its block once. No atomics, no second pass; a
+// group with no active tile writes zeros (the JAX backward's `visited`
+// mask).
 //
 // Arithmetic: bf16 operands on the tensor cores with f32 sums, K5 rounding
-// its f32 sum once to bf16, K6 writing f32. The float32 path (tests, the
-// f32 exactness check) uses plain FMA in 64 x 64 tiles.
+// its f32 sum once to bf16, K6 writing f32 or its f32 sum rounded once to
+// bf16 (the cast the backward needs, without a second pass). The float32
+// path (tests, the f32 exactness check) uses plain FMA in 64 x 64 tiles.
 //
 // Bound at the Mixtral-8x7B training shape (16384 routed rows in 8 groups,
 // 17408 padded rows, D 4096, F 14336): one K5 or K6 launch does 2 * 16384
 // * 4096 * 14336 = 1.92 TFLOP, 1.95 ms at the card's 989 TFLOP/s dense
 // bf16, against 0.94 GB of weights (0.28 ms at 3.35 TB/s). So both are
 // bound by operations, and only wgmma reaches the full tensor-core rate.
-// K5 is built for it (see its section below): a persistent block per SM of
-// one producer warpgroup and two consumer warpgroups, TMA loads into a
-// four-stage ring of 128-byte-swizzled stages on mbarriers, wgmma
-// m64n256k16 with the sums in registers, and tiles walked in bands of 16
-// row tiles so that a wave's x rows and weight columns stay in the 50 MB
-// L2. K6 keeps the first design: 128 x 128 output tiles per block of 8
-// warps on mma.sync m16n8k16 (64 x 32 each), operands fetched with
-// ldmatrix (.trans where the operand is stored k-major), a three-stage
-// cp.async pipeline over 64-deep k slices and two blocks per SM; its move
-// to wgmma, and split-K for uneven groups, are left to later work.
+// Both are built for it (see their sections below): a persistent block per
+// SM of one producer warpgroup and two consumer warpgroups, TMA loads into
+// a four-stage ring of 128-byte-swizzled 48 KB stages on mbarriers, wgmma
+// m64n256k16 with the sums in registers, and output tiles walked in bands
+// of 16 row blocks so that a wave's operand rows stay in the 50 MB L2.
 //
 // Tails: K and N need not be multiples of the tile. TMA zero-fills past
-// them; in the cp.async paths a 16-byte chunk that is whole and aligned is
-// copied with cp.async, a partial or unaligned one element by element and
-// zero-filled, so any shape is taken.
+// them; in the cp.async producers a 16-byte chunk that is whole and aligned
+// is copied with cp.async, a partial or unaligned one element by element
+// and zero-filled, so any shape is taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,17 +57,7 @@ using namespace hopper;
 using namespace tile_mma;
 
 constexpr int TILE = 128;  // rows of a layout tile (block_s)
-// K6's tiling
-constexpr int BM = 128;    // output rows per block
-constexpr int BN = 128;    // output columns per block
-constexpr int BK = 64;     // reduction depth per pipeline stage
-constexpr int STAGES = 3;
-constexpr int WARPS_M = 2, WARPS_N = 4;  // the warps of a block
-constexpr int NTHREADS = 32 * WARPS_M * WARPS_N;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // a warp's outputs
-constexpr int MI = WM / 16, NI = WN / 8;  // its m16 and n8 fragments
-constexpr int MIN_BLOCKS = 2;             // blocks per SM
-constexpr int BAND = 16;  // row blocks per band of the block order
+constexpr int BAND = 16;   // row blocks per band of the block order
 
 // The (row block, column block) of linear block `pid` over an m x n grid of
 // output blocks, walked in bands of BAND row blocks, column by column.
@@ -96,23 +83,6 @@ __device__ __forceinline__ void load_chunk(__nv_bfloat16* dst,
 #pragma unroll
     for (int e = 0; e < 8; ++e)
       dst[e] = e < valid ? src[e] : __float2bfloat16(0.f);
-  }
-}
-
-// A row-major [rows][cols] tile of a matrix with leading dimension ld into
-// shared memory with leading dimension LD: tile rows r < row_lim and
-// columns c < col_lim are read, the rest zero-filled.
-template <int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int row_lim,
-                                          int col_lim, int tid) {
-  constexpr int CPR = COLS / 8;
-  for (int c = tid; c < ROWS * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int valid = r < row_lim ? col_lim - col : 0;
-    load_chunk(dst + r * LD + col, src + (r < row_lim ? r * ld + col : 0),
-               valid);
   }
 }
 
@@ -338,24 +308,54 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// K6: bf16 tensor-core kernel
+// K6: bf16 wgmma kernel, warp-specialised and persistent
 // ---------------------------------------------------------------------------
+//
+// dw[g] = x_g^T dy_g is a product whose reduction runs over the group's
+// rows: M = D, N = F, K = rows. One block per SM walks the work items
+// (group, 128 D rows, 256 F columns), the groups with the most active tiles
+// first (ranked by each block at its start) and, within a group, the
+// output blocks in band_order. Warpgroup 0 is the producer: one warp
+// walks the active tiles of the item's group and fills a ring of
+// WG_STAGES stages, each 64 layout rows of x (A, two [64 rows][64 d] boxes)
+// and of dy (B, four [64 rows][64 f] boxes), and marks it full on its
+// mbarrier. A is x^T, whose M dimension (D) is the contiguous one, so A is
+// MN-major and read with wgmma's transpose bit for A; B is MN-major like
+// K5's forward weights. Warpgroups 1 and 2 are the consumers, 64 D rows
+// each: per stage four wgmma m64n256k16 with the f32 sums in registers
+// (128 a thread), the stage handed back once the wgmma that read it have
+// finished (one group stays in flight). The epilogue writes the item's
+// block once, in f32 or rounded once to bf16, while the producer already
+// fills the next item's stages. Uneven groups only change an item's length;
+// at Mixtral's widths a launch has about 100 waves of items, so the groups
+// are not split along their rows.
+//
+// Two producers fill the same swizzled stages, as in K5: kTma, one thread
+// issues TMA loads from 2D maps over x [S, D] and dy [S, F], which
+// zero-fill past D and F; otherwise (a base or row stride not 16-byte
+// aligned) the producer warp copies with cp.async and element by element
+// at the ragged edge (fill_dw_stage), and each lane arrives on the full
+// barrier.
+
+constexpr int DW_BM = 128;  // D rows of an item (two consumers of 64)
+constexpr int DW_BN = 256;  // F columns of an item
+constexpr int DW_BK = 64;   // layout rows of a stage
+constexpr int DW_BOX = 64 * 128;                         // one [64][64] box
+constexpr int DW_A_BYTES = (DW_BM / 64) * DW_BOX;        // 16 KB
+constexpr int DW_STAGE_BYTES = DW_A_BYTES + (DW_BN / 64) * DW_BOX;  // 48 KB
+constexpr int DW_MAX_GROUPS = 1024;  // groups a block ranks in smem
+constexpr int DW_SMEM = 1024 + WG_STAGES * DW_STAGE_BYTES +
+                        2 * WG_STAGES * 8 + 2 * DW_MAX_GROUPS * 4;
 
 struct DwParams {
   const __nv_bfloat16* x;   // [S, D], rows ldx apart
   const __nv_bfloat16* dy;  // [S, F], rows lddy apart
-  float* dw;                // [G, D, F], contiguous
+  void* dw;                 // [G, D, F], contiguous, f32 or bf16
   const int* tile_group;
   const int* tile_active;
-  int n_tiles, D, F;
+  int n_tiles, D, F, G;
   long long ldx, lddy;
 };
-
-constexpr int LDX = BM + PAD;  // x tile [BK rows][BM columns of D]
-constexpr int LDY = BN + PAD;  // dy tile [BK rows][BN columns of F]
-constexpr int X_STAGE = BK * LDX;
-constexpr int Y_STAGE = BK * LDY;
-constexpr int DW_SMEM = STAGES * (X_STAGE + Y_STAGE) * 2;
 
 // The first index i of the non-decreasing tile_group with
 // tile_group[i] >= g (n when there is none).
@@ -370,104 +370,201 @@ __device__ __forceinline__ int lower_bound(const int* tile_group, int n,
   return lo;
 }
 
-// The A fragment of rows [m0, m0 + 16), columns [k0, k0 + 16) of a product
-// whose A is the transpose of a row-major [k][m] shared tile.
-__device__ __forceinline__ void load_a_km(uint32_t (&a)[4],
-                                          const __nv_bfloat16* tile, int ld,
-                                          int m0, int k0, int lane) {
-  ldmatrix_x4_trans(a, tile + (k0 + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
-                           ((lane >> 3) & 1) * 8);
+// The cp.async producer: one warp fills stage (sa, sb) with layout rows
+// [row, row + 64) of x's columns [d0, d0 + 128) and dy's [f0, f0 + 256),
+// zero past D and F.
+__device__ __forceinline__ void fill_dw_stage(unsigned char* sa,
+                                              unsigned char* sb,
+                                              const DwParams& p, long long row,
+                                              int d0, int f0, int lane) {
+  for (int c = lane; c < (DW_BM / 64) * 512; c += 32) {  // x: 2 boxes
+    const int box = c >> 9, r = (c >> 3) & 63, col = (c & 7) * 8;
+    const int d = d0 + box * 64 + col;
+    const int valid = p.D - d;
+    load_chunk(reinterpret_cast<__nv_bfloat16*>(sa + box * DW_BOX +
+                                                swizzle_128b(r, col)),
+               p.x + (valid > 0 ? (row + r) * p.ldx + d : 0), valid);
+  }
+  for (int c = lane; c < (DW_BN / 64) * 512; c += 32) {  // dy: 4 boxes
+    const int box = c >> 9, r = (c >> 3) & 63, col = (c & 7) * 8;
+    const int f = f0 + box * 64 + col;
+    const int valid = p.F - f;
+    load_chunk(reinterpret_cast<__nv_bfloat16*>(sb + box * DW_BOX +
+                                                swizzle_128b(r, col)),
+               p.dy + (valid > 0 ? (row + r) * p.lddy + f : 0), valid);
+  }
 }
 
-__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-    gmm_dw_bf16_kernel(DwParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sY = sX + STAGES * X_STAGE;
+// The ring's next stage, flipping the phase bit at the wrap.
+__device__ __forceinline__ void next_stage(int& stage, uint32_t& phase) {
+  if (++stage == WG_STAGES) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
 
-  const int g = blockIdx.y;
-  int db, fb;
-  band_order(blockIdx.x, (p.D + BM - 1) / BM, (p.F + BN - 1) / BN, db, fb);
-  const int d0 = db * BM, f0 = fb * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int first = lower_bound(p.tile_group, p.n_tiles, g);
-  const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);
-  constexpr int KPT = TILE / BK;  // k slices per tile
-  const int nk = (last - first) * KPT;
+template <bool kTma, bool kOutBf16>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    gmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_dy,
+                        DwParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + WG_STAGES * DW_STAGE_BYTES);
+  uint64_t* empty = full + WG_STAGES;
+  int* count = reinterpret_cast<int*>(empty + WG_STAGES);  // [G]
+  int* order = count + DW_MAX_GROUPS;  // order[rank] = group
 
-  auto active = [&](int kt) { return p.tile_active[first + kt / KPT] != 0; };
-  auto load_stage = [&](int kt, int stage) {
-    const long long row = static_cast<long long>(first) * TILE + kt * BK;
-    load_tile<BK, BM, LDX>(sX + stage * X_STAGE, p.x + row * p.ldx + d0,
-                           p.ldx, BK, p.D - d0, tid);
-    load_tile<BK, BN, LDY>(sY + stage * Y_STAGE, p.dy + row * p.lddy + f0,
-                           p.lddy, BK, p.F - f0, tid);
+  // rank the groups by their active tiles, heaviest first (ties by index)
+  for (int g = threadIdx.x; g < p.G; g += blockDim.x) count[g] = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 32);  // the TMA thread, or each lane
+      mbar_init(&empty[s], 2);             // one thread of each consumer
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < p.n_tiles; t += blockDim.x)
+    if (p.tile_active[t] != 0) atomicAdd(&count[p.tile_group[t]], 1);
+  __syncthreads();
+  for (int g = threadIdx.x; g < p.G; g += blockDim.x) {
+    int rank = 0;
+    for (int h = 0; h < p.G; ++h)
+      rank += count[h] > count[g] || (count[h] == count[g] && h < g);
+    order[rank] = g;
+  }
+  __syncthreads();
+
+  const int n_d = (p.D + DW_BM - 1) / DW_BM, n_f = (p.F + DW_BN - 1) / DW_BN;
+  const int per_group = n_d * n_f;
+  const int total = p.G * per_group;
+  // work item i: its group, D block and F block
+  auto item = [&](int i, int& g, int& db, int& fb) {
+    g = order[i / per_group];
+    band_order(i % per_group, n_d, n_f, db, fb);
   };
 
-  const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
-  float acc[MI][NI][4];
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int stage = 0;
+    uint32_t write_phase = 0;
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      int g, db, fb;
+      item(i, g, db, fb);
+      const int first = lower_bound(p.tile_group, p.n_tiles, g);
+      const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);
+      for (int t = first; t < last; ++t) {
+        if (p.tile_active[t] == 0) continue;  // K6 skips inactive tiles
+        for (int h = 0; h < TILE / DW_BK; ++h) {
+          mbar_wait(&empty[stage], write_phase ^ 1);
+          unsigned char* sa = smem + stage * DW_STAGE_BYTES;
+          unsigned char* sb = sa + DW_A_BYTES;
+          const int row = t * TILE + h * DW_BK;
+          if (kTma) {
+            if (lane == 0) {
+              mbar_arrive_expect_tx(&full[stage], DW_STAGE_BYTES);
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+              for (int j = 0; j < DW_BM / 64; ++j)
+                tma_load_2d(sa + j * DW_BOX, &tm_x, &full[stage],
+                            db * DW_BM + j * 64, row);
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-  // k slices of inactive tiles are neither loaded nor multiplied; the
-  // commit groups stay one per slice so the pipeline's waits hold
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk && active(s)) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < nk && active(next)) load_stage(next, next % STAGES);
-    cp_async_commit();
-    if (!active(kt)) continue;  // K6 skips inactive tiles
-    const __nv_bfloat16* cX = sX + (kt % STAGES) * X_STAGE;
-    const __nv_bfloat16* cY = sY + (kt % STAGES) * Y_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[MI][4], b[NI / 2][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        load_a_km(a[mi], cX, LDX, wm0 + mi * 16, kk * 16, lane);
-#pragma unroll
-      for (int nj = 0; nj < NI / 2; ++nj)
-        load_b_kn(b[nj], cY, LDY, kk * 16, wn0 + nj * 16, lane);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
-                   b[ni >> 1][(ni & 1) * 2 + 1]);
-    }
-  }
-  cp_async_wait<0>();
-
-  float* out = p.dw + static_cast<long long>(g) * p.D * p.F;
-  const int gr = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int d = d0 + wm0 + mi * 16 + gr + h * 8;
-        const int f = f0 + wn0 + ni * 8 + t4 * 2;
-        if (d >= p.D) continue;
-        float* dst = out + static_cast<long long>(d) * p.F + f;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-        if (f + 1 < p.F && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        } else {
-          if (f < p.F) dst[0] = v0;
-          if (f + 1 < p.F) dst[1] = v1;
+              for (int j = 0; j < DW_BN / 64; ++j)
+                tma_load_2d(sb + j * DW_BOX, &tm_dy, &full[stage],
+                            fb * DW_BN + j * 64, row);
+            }
+          } else {
+            fill_dw_stage(sa, sb, p, row, db * DW_BM, fb * DW_BN, lane);
+            cp_async_commit();
+            cp_async_wait<0>();
+            fence_proxy_async();  // the copies, before wgmma reads them
+            mbar_arrive(&full[stage]);
+          }
+          next_stage(stage, write_phase);
         }
       }
+    }
+  } else {  // a consumer warpgroup: 64 D rows of each item
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    int stage = 0;
+    uint32_t read_phase = 0;
+    float acc[128];
+    for (int i = blockIdx.x; i < total; i += gridDim.x) {
+      int g, db, fb;
+      item(i, g, db, fb);
+      const int first = lower_bound(p.tile_group, p.n_tiles, g);
+      const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);
+#pragma unroll
+      for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+      int held = -1;  // the stage the wgmma group in flight reads
+      for (int t = first; t < last; ++t) {
+        if (p.tile_active[t] == 0) continue;  // K6 skips inactive tiles
+        for (int h = 0; h < TILE / DW_BK; ++h) {
+          mbar_wait(&full[stage], read_phase);
+          const unsigned char* sa =
+              smem + stage * DW_STAGE_BYTES + c * DW_BOX;
+          const unsigned char* sb =
+              smem + stage * DW_STAGE_BYTES + DW_A_BYTES;
+          fence_operand(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DW_BK / 16; ++kk)
+            wgmma_m64n256k16_ss<1, 1>(
+                acc, desc_mn_major(sa + kk * 16 * 128, DW_BOX),
+                desc_mn_major(sb + kk * 16 * 128, DW_BOX), 1);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous stage's group has finished
+          fence_operand(acc);
+          if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+          held = stage;
+          next_stage(stage, read_phase);
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(acc);
+      if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);
+
+      // epilogue: this thread's D rows d and d + 8, F column pairs
+      // 8j + 2(l%4); a group with no active tile writes zeros
+      const int d = db * DW_BM + c * 64 + warp * 16 + lane / 4;
+      const int f0 = fb * DW_BN + (lane % 4) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = d + h * 8;
+        if (row >= p.D) continue;
+        const long long base = (static_cast<long long>(g) * p.D + row) * p.F;
+#pragma unroll
+        for (int j = 0; j < DW_BN / 8; ++j) {
+          const int col = f0 + j * 8;
+          if (col >= p.F) continue;
+          const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (kOutBf16) {
+            __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.dw) + base +
+                                 col;
+            if (col + 1 < p.F && (reinterpret_cast<uintptr_t>(dst) & 3) == 0) {
+              *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+            } else {
+              dst[0] = __float2bfloat16(v0);
+              if (col + 1 < p.F) dst[1] = __float2bfloat16(v1);
+            }
+          } else {
+            float* dst = static_cast<float*>(p.dw) + base + col;
+            if (col + 1 < p.F && (reinterpret_cast<uintptr_t>(dst) & 7) == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (col + 1 < p.F) dst[1] = v1;
+            }
+          }
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -625,6 +722,40 @@ cudaError_t launch_fwd_wgmma(const FwdParams& p, int G, int device,
   return cudaGetLastError();
 }
 
+// K6 in bf16: the tensor maps (kTma), then one persistent block per SM, at
+// most one per work item.
+template <bool kTma, bool kOutBf16>
+cudaError_t launch_dw_wgmma(const DwParams& p, int device, cudaStream_t st) {
+  CUtensorMap tm_x, tm_dy;
+  memset(&tm_x, 0, sizeof(tm_x));
+  memset(&tm_dy, 0, sizeof(tm_dy));
+  cudaError_t err;
+  if (kTma) {
+    const cuuint64_t rows = static_cast<cuuint64_t>(p.n_tiles) * TILE;
+    const cuuint32_t box[2] = {64, DW_BK};
+    const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(p.D), rows};
+    const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(p.ldx) * 2};
+    err = make_map_bf16(&tm_x, p.x, 2, x_dims, x_strides, box);
+    if (err != cudaSuccess) return err;
+    const cuuint64_t dy_dims[2] = {static_cast<cuuint64_t>(p.F), rows};
+    const cuuint64_t dy_strides[1] = {static_cast<cuuint64_t>(p.lddy) * 2};
+    err = make_map_bf16(&tm_dy, p.dy, 2, dy_dims, dy_strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  const void* kernel =
+      reinterpret_cast<const void*>(gmm_dw_wgmma_kernel<kTma, kOutBf16>);
+  err = set_smem(kernel, DW_SMEM);
+  if (err != cudaSuccess) return err;
+  const int items =
+      p.G * ((p.D + DW_BM - 1) / DW_BM) * ((p.F + DW_BN - 1) / DW_BN);
+  const int sms = sm_count(device);
+  const int grid = items < sms ? items : sms;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  gmm_dw_wgmma_kernel<kTma, kOutBf16>
+      <<<grid, WG_THREADS, DW_SMEM, st>>>(tm_x, tm_dy, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points, loaded with ctypes. Strides are in elements; the last
@@ -676,12 +807,16 @@ extern "C" int gmm_fwd(const void* x, const void* w, void* y,
 // The dynamic shared memory of one bf16 K5 block, in bytes.
 extern "C" int gmm_fwd_smem_bytes() { return WG_SMEM; }
 
-// K6: dw [G, D, F] f32 (contiguous) = per group the sum over its active
-// tiles of x[tile]^T dy[tile]; x [S, D], dy [S, F].
+// K6: dw [G, D, F] (contiguous) = per group the sum over its active tiles
+// of x[tile]^T dy[tile]; x [S, D], dy [S, F]. dw is f32, or with out_bf16
+// (bf16 operands only) the f32 sums rounded once to bf16. In bf16, use_tma
+// picks the TMA producer or the cp.async one as for K5; G is at most
+// gmm_dw_max_groups().
 extern "C" int gmm_dw(const void* x, const void* dy, void* dw,
                       const void* tile_group, const void* tile_active, int S,
                       int D, int F, int G, long long ldx, long long lddy,
-                      int dtype, int device, void* stream) {
+                      int use_tma, int out_bf16, int dtype, int device,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -690,15 +825,18 @@ extern "C" int gmm_dw(const void* x, const void* dy, void* dw,
   const int* ta = static_cast<const int*>(tile_active);
   if (G == 0 || D == 0 || F == 0) return 0;
   if (dtype == 1) {
+    if (G > DW_MAX_GROUPS) return static_cast<int>(cudaErrorInvalidValue);
     DwParams p{static_cast<const __nv_bfloat16*>(x),
-               static_cast<const __nv_bfloat16*>(dy), static_cast<float*>(dw),
-               tg, ta, n_tiles, D, F, ldx, lddy};
-    err = set_smem(reinterpret_cast<const void*>(gmm_dw_bf16_kernel),
-                   DW_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(((D + BM - 1) / BM) * ((F + BN - 1) / BN), G);
-    gmm_dw_bf16_kernel<<<grid, NTHREADS, DW_SMEM, st>>>(p);
-  } else if (dtype == 0) {
+               static_cast<const __nv_bfloat16*>(dy), dw, tg, ta, n_tiles, D,
+               F, G, ldx, lddy};
+    if (out_bf16)
+      err = use_tma ? launch_dw_wgmma<true, true>(p, device, st)
+                    : launch_dw_wgmma<false, true>(p, device, st);
+    else
+      err = use_tma ? launch_dw_wgmma<true, false>(p, device, st)
+                    : launch_dw_wgmma<false, false>(p, device, st);
+    return static_cast<int>(err);
+  } else if (dtype == 0 && !out_bf16) {
     F32Params p{static_cast<const float*>(x), static_cast<const float*>(dy),
                 static_cast<float*>(dw), tg, ta, n_tiles, D, F, 0,
                 ldx, lddy, 0, 0};
@@ -709,3 +847,8 @@ extern "C" int gmm_dw(const void* x, const void* dy, void* dw,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The dynamic shared memory of one bf16 K6 block, in bytes, and the most
+// groups it ranks.
+extern "C" int gmm_dw_smem_bytes() { return DW_SMEM; }
+extern "C" int gmm_dw_max_groups() { return DW_MAX_GROUPS; }

@@ -1,22 +1,23 @@
 // Hopper (sm_90a) primitives shared by the wgmma/TMA kernels (K1 in
-// flash_fwd.cu, K5 in gmm.cu), as inline PTX: mbarriers, TMA tensor loads,
-// the shared-memory matrix descriptor for the 128-byte swizzle, wgmma
-// (fence, commit, wait, m64nNk16 bf16 -> f32 with A in shared memory or in
-// registers), named barriers, setmaxnreg, and on the host the tensor-map
-// encoder fetched from the driver through the runtime (so the libraries
-// need no -lcuda) and the SM count.
+// flash_fwd.cu, K3 in flash_bwd.cu, K5 and K6 in gmm.cu), as inline PTX:
+// mbarriers, TMA tensor loads, the shared-memory matrix descriptor for the
+// 128-byte swizzle, wgmma (fence, commit, wait, m64nNk16 bf16 -> f32 with A
+// in shared memory or in registers), named barriers, setmaxnreg, and on the
+// host the tensor-map encoder fetched from the driver through the runtime
+// (so the libraries need no -lcuda) and the SM count.
 //
 // Layouts. Every tile in shared memory is a stack of boxes whose rows are
 // 128 bytes (64 bf16) wide, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B
 // (or by hand at the same places, swizzle_128b below): row r of a box
 // starts at r * 128 and its 16-byte chunk c sits at chunk c ^ (r % 8). Box
 // bases are 1024-byte aligned, the period of the pattern.
-//   K-major operand (the reduction dim contiguous: A always, B when it is
-//   stored [N][K]): a [rows][64] box; 8-row groups are 1024 bytes apart
+//   K-major operand (the reduction dim contiguous: A without the transpose
+//   bit, B when it is stored [N][K]): a [rows][64] box; 8-row groups are 1024 bytes apart
 //   (SBO), and a k16 step moves the start address by 32 bytes.
-//   MN-major operand (B stored [K][N]): [64 k][64 n] boxes; the next 64
-//   columns are a box further on (LBO), 8 k rows are 1024 bytes apart
-//   (SBO), and a k16 step moves the start address by 16 rows, 2048 bytes.
+//   MN-major operand (B stored [K][N], or A stored [K][M] with the
+//   transpose bit): [64 k][64 n] boxes; the next 64 columns are a box
+//   further on (LBO), 8 k rows are 1024 bytes apart (SBO), and a k16 step
+//   moves the start address by 16 rows, 2048 bytes.
 //
 // Accumulator layout of m64nNk16 (also the register A operand's): thread
 // t of the warpgroup, warp w = t / 32, lane l: d[4j + e] holds row
@@ -207,7 +208,10 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 // d (+)= A B for a 64-row A and k16; scale_d 0 ignores d's old value.
 // kTransB 0: B is K-major; 1: B is MN-major. The SS forms read A from
 // shared memory through its descriptor, the RS forms from registers.
-template <int kTransB>
+// kTransA (the n256 SS form): 0, A is K-major; 1, A is MN-major (its M
+// dimension contiguous, [64 k][64 m] boxes described as an MN-major B),
+// legal for bf16 operands read from shared memory.
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
                                                   uint64_t desc_a,
                                                   uint64_t desc_b,
@@ -228,7 +232,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127"
       "}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -261,7 +265,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 template <int kTransB>
@@ -296,6 +300,31 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
@@ -361,6 +390,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
+}
+
+// 2^x by the special-function unit alone (ex2.approx.ftz: relative error
+// about 2^-22, subnormal results flushed to 0); exp2f adds the subnormal
+// handling, which a softmax, bound by these units, pays for on every
+// score.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------

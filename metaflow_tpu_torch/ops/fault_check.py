@@ -58,20 +58,35 @@ FLASH_FAULTS = {
         ("        s[j][e] = pv * (dp[j][e] - dlt[i]) * p.scale;",
          "        s[j][e] = " + _ROUND4 % "(pv * (dp[j][e] - dlt[i]) * "
          "p.scale)" + ";")],
+    # faults in K3's wgmma body (flash_bwd_dkv_wgmma_kernel):
+    # the consumer never flips its full barriers' phase bit: from a stage's
+    # second use a wait passes on its previous phase, before the stage is
+    # refilled (or deadlocks, which the watchdog traps)
+    "k3_phase_bit_not_flipped": [
+        ("        mbar_wait(&full[st], (it / KV_STAGES) & 1);",
+         "        mbar_wait(&full[st], 0);")],
+    # the consumer hands its Q / dO stage back as soon as it is full,
+    # before any of the products that read it have been waited for (handed
+    # back after the dV, dK commit instead, it reads sound: the refill
+    # lands later than those products finish)
+    "k3_stage_released_before_wgmma_wait": [
+        ("        mbar_wait(&full[st], (it / KV_STAGES) & 1);\n",
+         "        mbar_wait(&full[st], (it / KV_STAGES) & 1);\n"
+         "        if (tid == 0) mbar_arrive(&empty[st]);\n"),
+        ("        if (tid == 0) mbar_arrive(&empty[st]);  // the stage, read "
+         "for good\n", "")],
     # K3 keeps the queries before the diagonal
     "k3_causal_mask_dropped": [
-        ("if (qpos >= S || (p.causal && qpos < key)) pv = 0.f;",
-         "if (qpos >= S) pv = 0.f;")],
-    # K3 skips the last q head of each GQA group
+        ("              if (qpos >= S || (p.causal && qpos < key)) pv = 0.f;",
+         "              if (qpos >= S) pv = 0.f;")],
+    # producer and consumer skip the last q head of each GQA group
     "k3_gqa_head_skipped": [
         ("const int n_iter = group * per_head;",
-         "const int n_iter = (group - 1) * per_head;"),
-        ("for (int gi = 0; gi < group; ++gi) {",
-         "for (int gi = 0; gi < group - 1; ++gi) {")],
+         "const int n_iter = (group - 1) * per_head;")],
     # K3's P rounded to 4 mantissa bits before P^T dO
     "k3_p_4_mantissa_bits": [
-        ("        st[j][e] = pv;",
-         "        st[j][e] = " + _ROUND4 % "pv" + ";")],
+        ("            sp[4 * jj + e] = pv;",
+         "            sp[4 * jj + e] = " + _ROUND4 % "pv" + ";")],
 }
 
 # faults in K1's bf16 wgmma body (flash_fwd.cu's flash_fwd_wgmma_kernel)
@@ -254,7 +269,7 @@ _ACC_TO_BF16 = (
     "            acc[i] = __bfloat162float(__float2bfloat16(acc[i]));\n")
 
 # faults in K5's wgmma body (the kTma and cp.async producers alike, unless
-# named) and in K6
+# named) and in K6's
 GMM_FAULTS = {
     "sound": [],
     # the consumers never flip their full-barrier phase bit: from the
@@ -298,18 +313,47 @@ GMM_FAULTS = {
     "k5_bf16_accumulator": [
         ("wgmma_wait<1>();  // the previous k slice's group has finished\n",
          _ACC_TO_BF16)],
-    # K6 loads and multiplies the rows of inactive tiles too
+    # faults in K6's wgmma body (gmm_dw_wgmma_kernel), both producers:
+    # the consumers never flip their full barriers' phase bit
+    "k6_phase_bit_not_flipped": [
+        ("          next_stage(stage, read_phase);",
+         "          if (++stage == WG_STAGES) stage = 0;")],
+    # a consumer hands its stage back right after committing the wgmma
+    # that read it, before waiting for them
+    "k6_stage_released_before_wgmma_wait": [
+        ("          wgmma_commit();\n"
+         "          wgmma_wait<1>();  // the previous stage's group has "
+         "finished\n"
+         "          fence_operand(acc);\n"
+         "          if (held >= 0 && tid == 0) mbar_arrive(&empty[held]);\n"
+         "          held = stage;\n",
+         "          wgmma_commit();\n"
+         "          if (tid == 0) mbar_arrive(&empty[stage]);\n"
+         "          wgmma_wait<1>();\n"
+         "          fence_operand(acc);\n"
+         "          held = -1;\n")],
+    # A (x^T, stored M-major) read without wgmma's transpose bit for A
+    "k6_a_transpose_bit_ignored": [
+        ("wgmma_m64n256k16_ss<1, 1>(", "wgmma_m64n256k16_ss<1, 0>(")],
+    # producer and consumers load and multiply inactive tiles too
     "k6_counts_inactive_tiles": [
-        ("auto active = [&](int kt) { return p.tile_active[first + kt / KPT]"
-         " != 0; };",
-         "auto active = [&](int kt) { return true; };")],
+        ("if (p.tile_active[t] == 0) continue;  // K6 skips inactive tiles",
+         "// inactive tiles counted")],
+    # producer and consumers walk one tile past their group: the next
+    # group's first tile
+    "k6_reads_next_groups_rows": [
+        ("      const int last = lower_bound(p.tile_group, p.n_tiles, g + 1);",
+         "      const int last = min(\n"
+         "          lower_bound(p.tile_group, p.n_tiles, g + 1) + 1, "
+         "p.n_tiles);")],
 }
 
 # chip_smoke.py's phase-6 cases: (name, rows, groups, D, F, dtype, how the
 # rows are grouped). "empty_one_row" leaves group 1 empty and gives group 2
 # one row; "row_valid" marks 70 % of the rows as padding; "inactive" forces
 # a real tile inactive; "train" is Mixtral-8x7B's gate/up and down shapes
-# at 16384 routed rows (tokens [4, 2048], top-2 of 8).
+# at 16384 routed rows (tokens [4, 2048], top-2 of 8), "skewed" the gate/up
+# shape with 70 % of the rows routed to one group.
 GMM_CASES = [
     ("f32_tails", 700, 5, 40, 72, torch.float32, "random"),
     ("f32_inactive", 2000, 8, 256, 384, torch.float32, "inactive"),
@@ -319,6 +363,7 @@ GMM_CASES = [
     ("bf16_inactive", 2000, 8, 256, 384, torch.bfloat16, "inactive"),
     ("bf16_train_down", 16384, 8, 14336, 4096, torch.bfloat16, "random"),
     ("bf16_train_gate_up", 16384, 8, 4096, 14336, torch.bfloat16, "random"),
+    ("bf16_train_skewed", 16384, 8, 4096, 14336, torch.bfloat16, "skewed"),
 ]
 
 
@@ -329,6 +374,10 @@ def gmm_inputs(n, groups, D, F, dtype, kind, gen):
     valid = None
     if kind == "empty_one_row":
         gids = torch.tensor([3] * (n - 6) + [0] * 5 + [2], device="cuda")
+    elif kind == "skewed":  # 70 % to group 0, the rest spread
+        gids = torch.where(
+            torch.rand(n, generator=gen, device="cuda") < 0.7, 0,
+            torch.randint(1, groups, (n,), generator=gen, device="cuda"))
     else:
         gids = torch.randint(0, groups, (n,), generator=gen, device="cuda")
     if kind == "row_valid":
@@ -372,9 +421,11 @@ def gmm_reading(got, want, bf16_operands):
 
 
 def gmm_case_readings(x, w, dy, layout):
-    """K5 (y), K5 on the transposed weights (dx) and K6 (dw) against their
-    plain versions on one case's inputs: {'y': reading, 'dx': ...,
-    'dw': ...}, each kernel's output poisoned beforehand."""
+    """K5 (y), K5 on the transposed weights (dx) and K6 (dw, and for bf16
+    operands dw_bf16, its bf16 output against the plain f32 sum rounded
+    once) against their plain versions on one case's inputs: {'y':
+    reading, 'dx': ..., 'dw': ...}, each kernel's output poisoned
+    beforehand."""
     G = importlib.import_module("metaflow_tpu_torch.ops.gmm")
     tg, ta = layout["tile_group"], layout["tile_active"]
     S, (n_g, D, F) = x.shape[0], w.shape
@@ -389,7 +440,14 @@ def gmm_case_readings(x, w, dy, layout):
     del dx
     dw = _poisoned(lambda: G._gmm_dw_cuda(x, dy, tg, ta, n_g), (n_g, D, F),
                    torch.float32)
-    out["dw"] = gmm_reading(dw, G._gmm_dw_plain(x, dy, tg, ta, n_g), bf16)
+    want = G._gmm_dw_plain(x, dy, tg, ta, n_g)
+    out["dw"] = gmm_reading(dw, want, bf16)
+    del dw
+    if bf16:
+        dw = _poisoned(lambda: G._gmm_dw_cuda(x, dy, tg, ta, n_g,
+                                              out_dtype=torch.bfloat16),
+                       (n_g, D, F), torch.bfloat16)
+        out["dw_bf16"] = gmm_reading(dw, want.to(torch.bfloat16), True)
     return out
 
 
@@ -450,7 +508,7 @@ SOURCES = {  # mode -> (source, faults, readings, {reading: limit's name})
                       "lse": "FLASH_BLOCK_STATS_LIMIT"})),
     "gmm": ("gmm", GMM_FAULTS, gmm_readings, (
         "gmm", {"y": "GMM_FWD_ROW_LIMIT", "dx": "GMM_FWD_ROW_LIMIT",
-                "dw": "GMM_DW_ROW_LIMIT"})),
+                "dw": "GMM_DW_ROW_LIMIT", "dw_bf16": "GMM_FWD_ROW_LIMIT"})),
 }
 
 
@@ -485,8 +543,8 @@ def read_fault(mode, name):
     _build.CSRC, _build.BUILD_DIR = root / "csrc", root / "build"
     _build._LOADED.pop(source, None)
     rows = readings()
-    worst = {dt: {n: max([r[n] for r in rows if r["dtype"] == dt],
-                         default=None) for n in limit}
+    worst = {dt: {n: max([r[n] for r in rows if r["dtype"] == dt
+                          and n in r], default=None) for n in limit}
              for dt in ("bfloat16", "float32")}
     return {"mode": mode, "fault": name, "worst_bf16": worst["bfloat16"],
             "worst_f32": worst["float32"], "limit": limit, "shapes": rows}

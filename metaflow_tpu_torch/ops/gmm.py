@@ -6,9 +6,11 @@ and padded so that every `block_s`-row tile belongs to ONE group
 package's custom_vjp): its forward and its dx are the hand-written Hopper
 kernel K5 of csrc/gmm.cu (replacing the TPU kernel `_gmm_fwd_kernel`; wgmma
 fed by TMA, or by cp.async where an operand is not 16-byte aligned, see
-_gmm_fwd_producer; dx reads the stored weights transposed, with no
-transposed copy), its dw the kernel K6 (replacing `_gmm_dw_kernel`), which
-sums each group's tiles in one block. Each kernel's plain PyTorch version
+_gmm_producer; dx reads the stored weights transposed, with no transposed
+copy), its dw the kernel K6 (replacing `_gmm_dw_kernel`; wgmma with the
+same two producers), which sums each (group, output block) over the
+group's tiles in one work item and writes w's dtype, the f32 sum rounded
+once. Each kernel's plain PyTorch version
 sits beside it: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.
 
@@ -37,18 +39,31 @@ BLOCK_S = BLOCK_F = BLOCK_D = KERNEL_TILE
 # about one bf16 ulp of it). Both sides take the same bf16 products exactly
 # and sum them in f32 in another order. K5 then rounds once to bf16, so a
 # row differs by at most one ulp of an element; K6's f32 dw differs by the
-# sums' order alone. On an H100 the sound kernels read at most 1.97 (K5,
-# its wgmma body as its first mma.sync one) and 0.0016 (K6) at
-# chip_smoke.py's phase-6 cases; faults planted in K5's wgmma body by
-# ops/fault_check.py read 9.3 to 19.7 (summing in bf16, at the training
-# shapes), 30 to 8e5 (a stage released before its wgmma wait, the dx
-# transpose bit, the group, the last k slice) and inf (an inactive tile
-# left unwritten, a phase bit not flipped: the watchdog's trap), and 392
-# (K6 adding an inactive tile). Each limit sits between its kernel's
-# sound readings and its weakest fault.
+# sums' order alone, and its bf16 dw, held to GMM_FWD_ROW_LIMIT as any
+# output rounded to bf16, is its f32 dw rounded once. On an H100 the sound
+# kernels read at most 1.97 (K5), 0.0050 (K6's f32 dw) and 1.77 (K6's bf16
+# dw against the plain sum rounded once) at chip_smoke.py's phase-6 cases;
+# faults planted in the wgmma bodies by ops/fault_check.py read 18.4 to
+# 19.7 (K5 summing in bf16, at the training shapes), 261 to 7e6 (a stage
+# released before its wgmma wait, a transpose bit, the group, the last k
+# slice, K6 adding an inactive tile or the next group's rows) and inf (an
+# inactive tile left unwritten, a phase bit not flipped: the watchdog's
+# trap). Each limit sits between its kernel's sound readings and its
+# weakest fault.
 GMM_FWD_ROW_LIMIT = 4.0
 GMM_DW_ROW_LIMIT = 0.5
 
+
+
+def bf16_ulps(got, want):
+    """|got - bf16(want)| in bf16 ulps of bf16(want), elementwise: K6's bf16
+    output (got) against its plain version's f32 sum (want) rounded once.
+    Both round the same f32 products summed in another order, so a sound
+    kernel reads 0 or 1 (a sum that lands on the other side of a rounding
+    boundary)."""
+    ref = want.to(torch.bfloat16).float()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    return (got.float() - ref).abs() / ulp
 
 # ---------------------------------------------------------------------------
 # grouped layout: sort slots by group, pad each group to a block_s multiple
@@ -147,10 +162,12 @@ def _gmm_fwd_plain(x, w, tile_group, tile_active, w_transposed=False):
     return y
 
 
-def _gmm_dw_plain(x, dy, tile_group, tile_active, num_groups):
+def _gmm_dw_plain(x, dy, tile_group, tile_active, num_groups,
+                  out_dtype=torch.float32):
     """The plain version of K6: dw[g] = the sum over group g's active
     tiles of x[tile]^T dy[tile], f32 products and sums; a group with no
-    active tile gives zeros. Returns f32 [G, D, F]."""
+    active tile gives zeros. Returns [G, D, F] in out_dtype, the f32 sum
+    rounded once."""
     S, D = x.shape
     F = dy.shape[1]
     n_tiles = tile_group.shape[0]
@@ -162,7 +179,7 @@ def _gmm_dw_plain(x, dy, tile_group, tile_active, num_groups):
         if idx.numel():
             dw[g] = (x_tiles[idx].reshape(-1, D).float().t()
                      @ dy_tiles[idx].reshape(-1, F).float())
-    return dw
+    return dw.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -203,16 +220,17 @@ def _check_operands(named, dtype, device):
                          % dtype)
 
 
-def _gmm_fwd_producer(x, w):
-    """Which producer K5 runs in bf16: "tma" when TMA tensor maps can
-    describe x and w (base addresses 16-byte aligned, row and group strides
-    multiples of 16 bytes), else "cp_async", which copies the same stages
-    with cp.async and element by element at the ragged edge. Decided from
-    pointers and strides alone, the same for w as stored or transposed."""
-    nbytes = x.element_size()
-    aligned = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-               and all(st * nbytes % 16 == 0
-                       for st in (x.stride(0), w.stride(0), w.stride(1))))
+def _gmm_producer(*operands):
+    """Which producer K5 (operands x, w) or K6 (x, dy) runs in bf16: "tma"
+    when TMA tensor maps can describe every operand (base addresses
+    16-byte aligned, every stride but the last a multiple of 16 bytes),
+    else "cp_async", which copies the same stages with cp.async and element
+    by element at the ragged edge. Decided from pointers and strides alone,
+    the same for w as stored or transposed."""
+    aligned = all(t.data_ptr() % 16 == 0
+                  and all(st * t.element_size() % 16 == 0
+                          for st in t.stride()[:-1])
+                  for t in operands)
     return "tma" if aligned else "cp_async"
 
 
@@ -236,7 +254,7 @@ def _gmm_fwd_cuda(x, w, tile_group, tile_active, w_transposed=False):
     err = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), tg.data_ptr(),
              ta.data_ptr(), S, K, N, G, x.stride(0), y.stride(0), w.stride(0),
              w.stride(1), int(bool(w_transposed)),
-             int(_gmm_fwd_producer(x, w) == "tma"),
+             int(_gmm_producer(x, w) == "tma"),
              1 if x.dtype == torch.bfloat16 else 0, _build.device_index(x),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -246,23 +264,34 @@ def _gmm_fwd_cuda(x, w, tile_group, tile_active, w_transposed=False):
     return y
 
 
-def _gmm_dw_cuda(x, dy, tile_group, tile_active, num_groups):
-    """Launch K6 on the card. Same contract as _gmm_dw_plain."""
+def _gmm_dw_cuda(x, dy, tile_group, tile_active, num_groups,
+                 out_dtype=torch.float32):
+    """Launch K6 on the card. Same contract as _gmm_dw_plain; a bf16
+    out_dtype needs bf16 operands."""
     _check_operands((("x", x), ("dy", dy)), x.dtype, x.device)
     S, D = x.shape
     F = dy.shape[1]
     if dy.shape[0] != S:
         raise ValueError("gmm kernel: x %s and dy %s differ in rows"
                          % (tuple(x.shape), tuple(dy.shape)))
+    if out_dtype not in (torch.float32, x.dtype):
+        raise ValueError("gmm_dw kernel writes float32 or the operands' "
+                         "dtype, not %s" % out_dtype)
+    lib = _build.load("gmm")
+    if x.dtype == torch.bfloat16 and num_groups > lib.gmm_dw_max_groups():
+        raise ValueError("gmm_dw kernel ranks at most %d groups, got %d"
+                         % (lib.gmm_dw_max_groups(), num_groups))
     tg, ta = _tile_tables(x, tile_group, tile_active)
-    dw = torch.empty(num_groups, D, F, dtype=torch.float32, device=x.device)
-    fn = _build.load("gmm").gmm_dw
+    dw = torch.empty(num_groups, D, F, dtype=out_dtype, device=x.device)
+    fn = lib.gmm_dw
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), tg.data_ptr(),
              ta.data_ptr(), S, D, F, num_groups, x.stride(0), dy.stride(0),
+             int(_gmm_producer(x, dy) == "tma"),
+             int(out_dtype == torch.bfloat16),
              1 if x.dtype == torch.bfloat16 else 0, _build.device_index(x),
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -280,11 +309,14 @@ def _gmm_fwd(x, w, tile_group, tile_active, w_transposed=False):
     return _gmm_fwd_cuda(x, w, tile_group, tile_active, w_transposed)
 
 
-def _gmm_dw(x, dy, tile_group, tile_active, num_groups):
+def _gmm_dw(x, dy, tile_group, tile_active, num_groups,
+            out_dtype=torch.float32):
     """K6, dispatched as _gmm_fwd is."""
     if x.device.type == "cpu":
-        return _gmm_dw_plain(x, dy, tile_group, tile_active, num_groups)
-    return _gmm_dw_cuda(x, dy, tile_group, tile_active, num_groups)
+        return _gmm_dw_plain(x, dy, tile_group, tile_active, num_groups,
+                             out_dtype)
+    return _gmm_dw_cuda(x, dy, tile_group, tile_active, num_groups,
+                        out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +327,10 @@ def _gmm_dw(x, dy, tile_group, tile_active, num_groups):
 class _GroupedMatmul(torch.autograd.Function):
     """gmm with its gradient, as the JAX package's custom_vjp: the forward
     (K5) saves x, w and the tile tables; the backward runs K5 on the
-    output gradient against w[g]^T for dx and K6 for dw, whose f32 sum is
-    cast to w's dtype once. K6 writes zeros for a group with no active
-    tile, which the JAX backward gets from its `visited` mask."""
+    output gradient against w[g]^T for dx and K6 for dw in w's dtype, its
+    f32 sum rounded once (the JAX backward's cast of its f32 dw). K6
+    writes zeros for a group with no active tile, which the JAX backward
+    gets from its `visited` mask."""
 
     @staticmethod
     def forward(ctx, x, w, tile_group, tile_active):
@@ -315,8 +348,8 @@ class _GroupedMatmul(torch.autograd.Function):
             dx = _gmm_fwd(dy, w, tile_group, tile_active,
                           w_transposed=True).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _gmm_dw(x, dy, tile_group, tile_active,
-                         w.shape[0]).to(w.dtype)
+            dw = _gmm_dw(x, dy, tile_group, tile_active, w.shape[0],
+                         out_dtype=w.dtype)
         return dx, dw, None, None
 
 

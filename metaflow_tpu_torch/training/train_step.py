@@ -13,6 +13,7 @@ Parameters are the model's plain dict of tensors (`init_params` or
 order (sorted keys), so sums over leaves add in the same order.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -57,14 +58,40 @@ def _map(fn, tree):
             for k, v in tree.items()}
 
 
+def _bf16(x):
+    """x rounded to bf16 (nearest even) and held in f32: one rounding of
+    the reference's bf16 program."""
+    return x.to(torch.bfloat16).float()
+
+
+@functools.lru_cache(maxsize=64)
+def _as_bf16(value):
+    """A Python constant as the bf16 literal JAX makes of it when it
+    meets a bf16 operand (a weak-typed scalar), as a float."""
+    return float(torch.tensor(value, dtype=torch.float32).to(torch.bfloat16))
+
+
 def global_norm(tensors):
     """optax.global_norm: the square root of the summed squares of every
-    tensor, in f32."""
-    total = None
+    tensor, as an f32 tensor. For f32 tensors the sums are f32 throughout.
+    For bf16 tensors it is what the reference's jitted program computes:
+    each tensor's squares summed in f32 and the sum rounded to bf16, the
+    tensors' sums added one by one in bf16, the square root rounded to
+    bf16. The tensors share one dtype."""
+    total, dtype = None, None
     for t in tensors:
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError("global_norm: tensors of dtypes %s and %s"
+                             % (dtype, t.dtype))
+        dtype = t.dtype
         sq = t.float().square().sum()
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+        if dtype == torch.bfloat16:
+            sq = _bf16(sq)
+            total = sq if total is None else _bf16(total + sq)
+        else:
+            total = sq if total is None else total + sq
+    norm = torch.sqrt(total)
+    return _bf16(norm) if dtype == torch.bfloat16 else norm
 
 
 @dataclass(frozen=True)
@@ -100,9 +127,25 @@ class AdamW:
         nu = (1 - b2) g^2 + b2 nu; u = (mu / (1 - b1^t)) /
         (sqrt(nu / (1 - b2^t)) + eps) + weight_decay p; p = p - lr u, with t
         the incremented count and lr the schedule at the count before it.
-        The intermediates are f32, the stored moments and parameters are
-        rounded to their dtypes once, as XLA's fused update keeps excess
-        precision between the stored values."""
+
+        f32 grads: the intermediates are f32 and the stored moments and
+        parameters are rounded to their dtypes once.
+
+        bf16 grads: the reference runs the chain inside one jitted step,
+        where JAX turns each Python constant that meets a bf16 operand into
+        a bf16 literal (1 - b1 = 0.10009765625, 1 - b2 = 0.050048828125,
+        b2 = 0.94921875, eps, weight_decay, clip_norm; b1 stays f32 beside
+        the f32 mu) and each bf16 op rounds to bf16. XLA's CPU program, read
+        from its optimised HLO, computes the ops in f32 and keeps the bf16
+        roundings of the norm (global_norm), of g / norm, of g^2,
+        (1 - b2) g^2, b2 nu and their sum (the stored nu), of
+        nu / bf16(1 - b2^t) and of its square root. It drops three: the
+        products (1 - b1) g and weight_decay p, and sqrt(.) + eps, enter the
+        next f32 op unrounded (excess precision where the program converts
+        a bf16 result to f32). It also rewrites (mu / bc1) / d as
+        mu / (bc1 d). This update makes the same roundings in the same
+        order, so parameters and nu come out bit for bit and mu within f32
+        rounding (tests/test_torch_train.py)."""
         pairs = list(zip(leaves(params), leaves(grads), leaves(state["mu"]),
                          leaves(state["nu"])))
         for (path, _), (gpath, _), (mpath, _), (npath, _) in pairs:
@@ -110,13 +153,18 @@ class AdamW:
                 raise ValueError("params, grads and optimizer state differ "
                                  "in structure at %s" % "/".join(path))
         norm = global_norm(g for _, (_, g), _, _ in pairs)
-        trigger = norm < self.clip_norm
+        low = bool(pairs) and pairs[0][1][1].dtype == torch.bfloat16
+        trigger = norm < (_as_bf16(self.clip_norm) if low else self.clip_norm)
         count = state["count"] + 1
         lr = self.schedule(state["count"])
         bc1 = 1 - self.b1 ** count
         bc2 = 1 - self.b2 ** count
         for (_, leaf), (_, grad), (_, m), (_, v) in pairs:
             for p, g, mu, nu in _update_chunks(leaf, grad, m, v):
+                if low:
+                    self._update_bf16(p, g, mu, nu, norm, trigger, lr, bc1,
+                                      bc2)
+                    continue
                 g = g.float()
                 g = torch.where(trigger, g, g / norm * self.clip_norm)
                 mu_new = (1 - self.b1) * g + self.b1 * mu.float()
@@ -129,6 +177,25 @@ class AdamW:
                 p.copy_(p.float() + (-lr) * u)
         state["count"] = count
         return norm
+
+    def _update_bf16(self, p, g, mu, nu, norm, trigger, lr, bc1, bc2):
+        """One chunk of update() for bf16 grads, rounding where the
+        reference's jitted program rounds (see update); norm is the bf16
+        global norm, trigger whether it is below the bf16 clip_norm. An op
+        on bf16 tensors computes in f32 and rounds its result to bf16 once,
+        which is each of those roundings; the unrounded steps run on f32
+        tensors."""
+        g = torch.where(trigger, g,
+                        g / norm.to(g.dtype) * _as_bf16(self.clip_norm))
+        gc = g.float()
+        mu.mul_(self.b1).add_(gc.mul_(_as_bf16(1 - self.b1)))
+        nu.mul_(_as_bf16(self.b2)).add_(g.mul(g).mul_(_as_bf16(1 - self.b2)))
+        den = torch.sqrt(nu / _as_bf16(bc2)).float()
+        den.add_(_as_bf16(self.eps)).mul_(bc1)
+        pf = p.float()
+        u = mu / den
+        u.add_(pf * _as_bf16(self.weight_decay))
+        p.copy_(pf.add_(u.mul_(-lr)))
 
 
 # elements of one leaf that an AdamW update works on at once: the f32

@@ -2,11 +2,14 @@
 chip_smoke.py's: the flash forward (K1) and backward (K2, K3) at ragged
 and long sequence lengths, strided inputs and output gradients, head dim
 64, GQA, the dispatcher's and autograd's routes to the kernels, and one
-trainer step through them; the grouped matmul K5 (both weight layouts,
-both producers, a persistent grid over more tiles than SMs, a single
-tile) and K6 over empty and one-row groups, row_valid padding, D and F
-tails and both dtypes, its autograd route, a Mixtral trainer step through
-K5/K6 against plain gmm, and that step with no host synchronisation; the
+trainer step through them; K3 over GQA groups of 1, 2 and 4 and on ring
+shard views; the grouped matmul K5 (both weight layouts, both producers,
+a persistent grid over more tiles than SMs, a single tile) and K6 over
+empty and one-row groups, row_valid padding, D and F tails and both
+dtypes, an empty group, a single tile, a group of many waves and skewed
+routing on both producers, its bf16 output, its autograd route, a
+Mixtral trainer step through K5/K6 against plain gmm, and that step with
+no host synchronisation; the
 ring hop's forward K4 on shard views (diagonal and full, ragged lengths,
 head dim 64, GQA), ring attention on LocalRing(n) against the flash path
 through autograd, and a trainer step through the ring. Needs an NVIDIA GPU
@@ -156,6 +159,33 @@ def test_backward_kernels_read_strided_inputs(cuda):
     g = torch.randn(2, 256, 10, 128, generator=cuda, device="cuda").to(
         torch.bfloat16)[:, :, 1:9]
     _check_bwd(q, k, v, g, True)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_kernel_over_gqa_groups(cuda, group, D, causal):
+    """K3 (with K2) at GQA groups of 1, 2 and 4 q heads a kv head, over a
+    ragged length: more work items than SMs, q tiles streamed over every
+    head of a group."""
+    KV, S = 2, 320
+    q, g = (torch.randn(3, S, KV * group, D, generator=cuda,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(3, S, KV, D, generator=cuda, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    _check_bwd(q, k, v, g, causal)
+
+
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_dkv_kernel_reads_ring_shard_views(cuda, diag, D):
+    """K3 and K2 as the ring's backward runs them: q, dO the second shard
+    of a two-shard sequence, k, v the same shard (diagonal, causal) or the
+    first (full, non-causal), all views read through their strides."""
+    q, k, v = _shard_views(cuda, 2, 256, 8, 4, D, torch.bfloat16, diag)
+    g = torch.randn(2, 512, 8, D, generator=cuda, device="cuda").to(
+        torch.bfloat16)[:, 256:]
+    _check_bwd(q, k, v, g, diag)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -470,8 +500,8 @@ def test_gmm_persistent_grid_over_many_tiles(cuda, producer):
     assert n_tiles > torch.cuda.get_device_properties(0).multi_processor_count
     if producer == "cp_async":
         x, w, dy = (_unaligned_copy(t) for t in (x, w, dy))
-    assert G._gmm_fwd_producer(x, w) == producer
-    assert G._gmm_fwd_producer(dy, w) == producer
+    assert G._gmm_producer(x, w) == producer
+    assert G._gmm_producer(dy, w) == producer
     torch.full((x.shape[0], F), float("nan"), dtype=x.dtype, device="cuda")
     y = G._gmm_fwd_cuda(x, w, tg, ta)  # reuses the freed NaN block
     assert torch.isfinite(y).all()
@@ -493,7 +523,7 @@ def test_gmm_single_tile(cuda, producer):
         torch.bfloat16)
     if producer == "cp_async":
         x, w, dy = (_unaligned_copy(t) for t in (x, w, dy))
-    assert G._gmm_fwd_producer(x, w) == producer
+    assert G._gmm_producer(x, w) == producer
     tg = torch.zeros(1, dtype=torch.int32, device="cuda")
     ta = torch.ones_like(tg)
     _assert_gmm_close(G._gmm_fwd_cuda(x, w, tg, ta),
@@ -501,6 +531,58 @@ def test_gmm_single_tile(cuda, producer):
     _assert_gmm_close(G._gmm_fwd_cuda(dy, w, tg, ta, w_transposed=True),
                       G._gmm_fwd_plain(dy, w, tg, ta, w_transposed=True),
                       "dx_bf16")
+
+
+# K6 cases: (group of each 128-row tile, groups, D, F). "empty_group"
+# leaves group 1 without a tile; "single_tile" is one group of one tile;
+# "many_waves" gives one group more (D block, F block) items than the card
+# has SMs, each over 12 tiles; "skewed" routes most rows to one group.
+DW_CASES = {
+    "empty_group": ([0, 0, 2, 2, 2], 3, 256, 512),
+    "single_tile": ([0], 1, 192, 320),
+    "many_waves": ([0] * 12 + [1] * 2, 2, 2048, 4096),
+    "skewed": ([0] + [1] * 20 + [2] + [3], 4, 512, 1024),
+}
+
+
+@pytest.mark.parametrize("producer", ["tma", "cp_async"])
+@pytest.mark.parametrize("case", sorted(DW_CASES))
+def test_gmm_dw_kernel_cases(cuda, case, producer):
+    """K6 against its plain version (f32 out within GMM_DW_ROW_LIMIT), a
+    group without tiles written as zeros over poisoned memory, and its
+    bf16 output bit for bit its own f32 sum rounded once (the cast the
+    backward made before), on both producers."""
+    tiles, groups, D, F = DW_CASES[case]
+    tg = torch.tensor(tiles, dtype=torch.int32, device="cuda")
+    ta = torch.ones_like(tg)
+    S = 128 * len(tiles)
+    x = torch.randn(S, D, generator=cuda, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(S, F, generator=cuda, device="cuda").to(torch.bfloat16)
+    if producer == "cp_async":
+        x, dy = (_unaligned_copy(t) for t in (x, dy))
+    assert G._gmm_producer(x, dy) == producer
+    torch.full((groups, D, F), float("nan"), device="cuda")
+    got = G._gmm_dw_cuda(x, dy, tg, ta, groups)  # reuses the NaN block
+    want = G._gmm_dw_plain(x, dy, tg, ta, groups)
+    assert torch.isfinite(got).all()
+    for g in range(groups):
+        if g not in tiles:
+            assert got[g].abs().max() == 0
+    _assert_gmm_close(got, want, "dw_bf16")
+    got_bf16 = G._gmm_dw_cuda(x, dy, tg, ta, groups,
+                              out_dtype=torch.bfloat16)
+    assert got_bf16.dtype == torch.bfloat16
+    assert torch.equal(got_bf16, got.to(torch.bfloat16))
+
+
+def test_gmm_dw_refuses_what_it_does_not_write(cuda):
+    """K6 writes f32 or the operands' dtype; bf16 out from f32 operands is
+    refused."""
+    x = torch.randn(128, 64, generator=cuda, device="cuda")
+    tg = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="writes float32"):
+        G._gmm_dw_cuda(x, x, tg, torch.ones_like(tg), 1,
+                       out_dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -223,15 +223,38 @@ def _bf16(*shape):
     # groups 8200 elements apart: a multiple of 8 elements, 16 bytes
     (_bf16(256, 64), _bf16(2, 8200)[:, :8192].view(2, 64, 128), "tma"),
     (_bf16(256, 64), _bf16(2, 8196)[:, :8192].view(2, 64, 128), "cp_async"),
+    # K6's operands x [S, D] and dy [S, F]
+    (_bf16(256, 64), _bf16(256, 128), "tma"),
+    (_bf16(256, 64), _bf16(256, 50), "cp_async"),
+    (_bf16(256, 64), _bf16(256 * 128 + 1)[1:].view(256, 128), "cp_async"),
 ], ids=["forward", "dx", "padded_rows", "x_rows_unaligned",
         "w_rows_unaligned", "x_base_unaligned", "w_base_aligned_offset",
-        "w_groups_aligned", "w_groups_unaligned"])
+        "w_groups_aligned", "w_groups_unaligned", "dw", "dw_dy_rows_unaligned",
+        "dw_dy_base_unaligned"])
 def test_gmm_fwd_producer_follows_strides_and_pointers(x, w, want):
-    """K5's producer choice: TMA where tensor maps can describe x and w
-    (16-byte aligned bases, row and group strides multiples of 16 bytes),
-    cp.async otherwise; from pointers and strides alone, so a CPU tensor
-    answers as a CUDA one would."""
-    assert port_gmm._gmm_fwd_producer(x, w) == want
+    """The producer choice of K5 (x, w) and K6 (x, dy): TMA where tensor
+    maps can describe every operand (16-byte aligned bases, strides but
+    the last multiples of 16 bytes), cp.async otherwise; from pointers and
+    strides alone, so a CPU tensor answers as a CUDA one would."""
+    assert port_gmm._gmm_producer(x, w) == want
+
+
+def test_gmm_dw_rounds_its_f32_sum_once():
+    """K6's plain version in bf16 out is its f32 sum rounded once, the
+    cast the backward made before it asked for w's dtype."""
+    rng = _rng(12)
+    _, layout = _layouts(rng.integers(0, 3, 300), 3)
+    x = port_gmm.scatter_rows(torch.from_numpy(
+        rng.standard_normal((300, 32)).astype(np.float32)), layout).to(
+        torch.bfloat16)
+    dy = torch.from_numpy(rng.standard_normal((x.shape[0], 48)).astype(
+        np.float32)).to(torch.bfloat16)
+    tg, ta = layout["tile_group"], layout["tile_active"]
+    f32 = port_gmm._gmm_dw_plain(x, dy, tg, ta, 3)
+    bf16 = port_gmm._gmm_dw_plain(x, dy, tg, ta, 3, torch.bfloat16)
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+    assert port_gmm.bf16_ulps(bf16, f32).max() == 0
 
 
 def _moe_inputs(seed=2, B=2, S=16, E=128, F=128, N=4):

@@ -176,6 +176,59 @@ def test_adamw_step_matches_optax(grad_scale):
         np.testing.assert_allclose(got_nu.numpy(), nu, rtol=1e-6)
 
 
+@pytest.mark.parametrize("grad_scale", [1e-3, 10.0])
+def test_adamw_bf16_matches_jitted_optax(grad_scale):
+    """Three updates of the port's AdamW on bf16 leaves against the
+    reference's chain run as the JAX trainer runs it, inside one jitted
+    step, with the global norm below (no clip) and above the threshold.
+    JAX makes the Python constants bf16 literals there and XLA rounds at
+    its own points, which AdamW.update repeats: the parameters and nu
+    (bf16) must come out bit for bit, mu (f32) within f32 rounding (rtol
+    1e-6 of each element, atol 1e-6 of max|mu| for the few elements
+    that cancel)."""
+    rng = np.random.default_rng(11)
+    bf16 = jax.numpy.bfloat16
+    tree = {"a": rng.standard_normal((64, 48)).astype(bf16),
+            "b": {"c": rng.standard_normal((100,)).astype(bf16)}}
+    grads = [jax.tree.map(lambda x: (grad_scale * rng.standard_normal(
+        x.shape)).astype(bf16), tree) for _ in range(STEPS)]
+    assert (float(optax.global_norm(grads[0])) < 1.0) == (grad_scale < 1.0)
+    kw = dict(lr=1e-2, warmup_steps=0, total_steps=10)
+    opt = ref_ts.default_optimizer(**kw)
+
+    @jax.jit
+    def ref_step(p, g, s):
+        updates, s = opt.update(g, s, p)
+        return optax.apply_updates(p, updates), s
+
+    ref_params, ref_state = tree, opt.init(tree)
+    for g in grads:
+        ref_params, ref_state = ref_step(ref_params, g, ref_state)
+
+    def to_torch(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(
+            torch.bfloat16)
+
+    port_opt = port_ts.default_optimizer(**kw)
+    params = jax.tree.map(to_torch, tree)
+    state = port_opt.init(params)
+    for g in grads:
+        port_opt.update(params, jax.tree.map(to_torch, g), state)
+    adam = ref_state[1][0]
+    for path, p in port_ts.leaves(params):
+        want, mu, nu = ref_params, adam.mu, adam.nu
+        for key in path:
+            want, mu, nu = want[key], mu[key], nu[key]
+        np.testing.assert_array_equal(p.float().numpy(),
+                                      np.asarray(want, np.float32))
+        got_nu = dict(port_ts.leaves(state["nu"]))[path]
+        np.testing.assert_array_equal(got_nu.float().numpy(),
+                                      np.asarray(nu, np.float32))
+        got_mu = dict(port_ts.leaves(state["mu"]))[path].numpy()
+        np.testing.assert_allclose(got_mu, mu, rtol=1e-6,
+                                   atol=1e-6 * np.abs(mu).max())
+
+
 def test_adamw_update_does_not_depend_on_its_split(monkeypatch):
     """Large leaves are updated in flat chunks (UPDATE_CHUNK elements) to
     bound the f32 temporaries; the elementwise update gives bit-identical
