@@ -5,18 +5,21 @@
 
 --baseline CHECKOUT: a directory holding an earlier checkout's
 metaflow_tpu_torch/ops/csrc (e.g. `git archive <commit>
-metaflow_tpu_torch/ops/csrc | tar -x -C _checkout/old`); its K3 and K6
-are built beside this tree's and timed against them in turns (earlier,
-this, this, earlier) in phases 4 and 6. Without it those timings are
-left out and everything else runs.
+metaflow_tpu_torch/ops/csrc | tar -x -C _checkout/old`) whose C entry
+points take this tree's arguments; its flash_bwd.cu, flash_fwd.cu and
+gmm.cu are built beside this tree's, and its K2 and K3 (phase 4), K6
+(phase 6) and K4 (phase 8a, diagonal and full hop) are timed against this
+tree's in turns (earlier, this, this, earlier), each through this tree's
+wrappers. Without it those timings are left out and everything else
+runs.
 
 Phase 0  prints the card's name and power limit, builds every kernel
          (K1 and K4 in flash_fwd.cu, K2/K3 in flash_bwd.cu, K5/K6 in
          gmm.cu) from metaflow_tpu_torch/ops/csrc with one nvcc per source
          started together, prints ptxas' registers and spills and, for the
-         wgmma kernels K1, K3, K5 and K6, their dynamic shared memory and
-         the HGMMA (wgmma) and UTMALDG (TMA) instructions in their SASS,
-         and turns TF32 off.
+         wgmma kernels (K1 and K4, K2, K3, K5, K6), their dynamic shared
+         memory and the HGMMA (wgmma) and UTMALDG (TMA) instructions in
+         their SASS, and turns TF32 off.
 Phase 1  holds K1 against its plain PyTorch version at the cases of
          ops/fault_check.py's FWD_CASES, the inference shape last, and
          times K1, the plain version and PyTorch's
@@ -184,18 +187,20 @@ def _demangle(names):
 
 
 def wgmma_kernel_report(_build):
-    """Phase 0's lines on the wgmma kernels (K1, K3, K5 and K6): for each,
-    ptxas' registers and spills, the dynamic shared memory its launch asks
-    for, and, where the toolkit has cuobjdump, the count of HGMMA (wgmma)
-    and UTMALDG (TMA load) instructions in its SASS."""
+    """Phase 0's lines on the wgmma kernels (K1 and K4, K2, K3, K5, K6):
+    for each, ptxas' registers and spills, the dynamic shared memory its
+    launch asks for, and, where the toolkit has cuobjdump, the count of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in its SASS."""
     # the dynamic shared memory of each kernel, from its mangled name
     smem = {"gmm": lambda lib, name: (lib.gmm_dw_smem_bytes()
                                       if "gmm_dw" in name
                                       else lib.gmm_fwd_smem_bytes()),
             "flash_fwd": lambda lib, name: lib.flash_fwd_smem_bytes(
                 64 if "ILi64E" in name else 128),
-            "flash_bwd": lambda lib, name: lib.flash_bwd_dkv_smem_bytes(
-                64 if "ILi64E" in name else 128)}
+            "flash_bwd": lambda lib, name: (
+                lib.flash_bwd_dq_smem_bytes if "flash_bwd_dq" in name
+                else lib.flash_bwd_dkv_smem_bytes)(
+                    64 if "ILi64E" in name else 128)}
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     lines = []
     for source, smem_of in smem.items():
@@ -321,41 +326,31 @@ def _baseline_csrc(root):
     return Path(root).resolve() / "metaflow_tpu_torch" / "ops" / "csrc"
 
 
+BASELINE_SOURCES = ("flash_bwd", "flash_fwd", "gmm")
+
+
 @contextlib.contextmanager
-def baseline_flash_bwd(_build, lib):
-    """Inside the block, the flash backward wrappers launch the earlier
+def baseline_source(_build, name, lib):
+    """Inside the block, the wrappers of csrc/<name>.cu launch the earlier
     build `lib` (its C entry points take the same arguments)."""
-    _build.load("flash_bwd")
-    saved = _build._LOADED["flash_bwd"]
-    _build._LOADED["flash_bwd"] = (lib, saved[1])
+    _build.load(name)
+    saved = _build._LOADED[name]
+    _build._LOADED[name] = (lib, saved[1])
     try:
         yield
     finally:
-        _build._LOADED["flash_bwd"] = saved
+        _build._LOADED[name] = saved
 
 
-def baseline_gmm_dw(torch, G, lib, x, dy, tg, ta, groups):
-    """The earlier build's K6 (f32 dw, the mma.sync body), through its own
-    C entry point."""
-    import ctypes
+def baseline_turns(_build, name, lib, new, iters):
+    """new() timed in turns against the same call on the earlier build of
+    csrc/<name>.cu (old_new_ms), with the two builds' outputs: (times,
+    old output, new output)."""
+    def old():
+        with baseline_source(_build, name, lib):
+            return new()
 
-    from metaflow_tpu_torch.ops import _build
-
-    tg, ta = G._tile_tables(x, tg, ta)
-    dw = torch.empty(groups, x.shape[1], dy.shape[1], dtype=torch.float32,
-                     device=x.device)
-    fn = lib.gmm_dw
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    err = fn(x.data_ptr(), dy.data_ptr(), dw.data_ptr(), tg.data_ptr(),
-             ta.data_ptr(), x.shape[0], x.shape[1], dy.shape[1], groups,
-             x.stride(0), dy.stride(0), 1, _build.device_index(x),
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("baseline gmm_dw failed: CUDA error %d" % err)
-    return dw
+    return old_new_ms(old, new, iters), old(), new()
 
 
 def phase1_kernel_vs_plain(A, FC, torch):
@@ -688,7 +683,8 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row,
     """K1 held against its plain version at the training shape, then every
     time of the kernel report: each kernel, the plain versions, SDPA (its
     backward under each backend, K2 + K3's yardstick the fastest) and,
-    with a baseline library, the earlier K3 in turns with this one."""
+    with a baseline library, the earlier K2 and K3 in turns with this
+    tree's."""
     B, S, H, KV, D = TRAIN_SHAPE
     scale = D ** -0.5
     ref_out, _ = A._flash_forward_plain(q, k, v, True, scale)
@@ -723,23 +719,22 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row,
     if baseline is not None:
         from metaflow_tpu_torch.ops import _build
 
-        def new_dkv():
-            return A._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, True)
-
-        def old_dkv():
-            with baseline_flash_bwd(_build, baseline):
-                return new_dkv()
-
-        row["dkv_old_new"] = old_new_ms(old_dkv, new_dkv, 20)
-        (old_dk, old_dv), (new_dk, new_dv) = old_dkv(), new_dkv()
-        row["dkv_old_new"]["row_err_new_vs_old"] = max(
-            A.flash_out_error(new_dk, old_dk), A.flash_out_error(new_dv,
-                                                                 old_dv))
-        del old_dk, old_dv, new_dk, new_dv
-        log("phase 4: K3 earlier build %.4f ms, this build %.4f ms (turns "
-            "%s)" % (row["dkv_old_new"]["old_ms"],
-                     row["dkv_old_new"]["new_ms"],
-                     row["dkv_old_new"]["turns_ms"]))
+        times, old, new = baseline_turns(
+            _build, "flash_bwd", baseline, lambda: A._flash_bwd_dq_cuda(
+                q, k, v, g, lse, delta, scale, True), 20)
+        times["row_err_new_vs_old"] = A.flash_out_error(new, old)
+        row["dq_old_new"] = times
+        times, old, new = baseline_turns(
+            _build, "flash_bwd", baseline, lambda: A._flash_bwd_dkv_cuda(
+                q, k, v, g, lse, delta, scale, True), 20)
+        times["row_err_new_vs_old"] = max(A.flash_out_error(new[0], old[0]),
+                                          A.flash_out_error(new[1], old[1]))
+        row["dkv_old_new"] = times
+        del old, new
+        for name, key in (("K2", "dq_old_new"), ("K3", "dkv_old_new")):
+            log("phase 4: %s earlier build %.4f ms, this build %.4f ms "
+                "(turns %s)" % (name, row[key]["old_ms"], row[key]["new_ms"],
+                                row[key]["turns_ms"]))
     records = {}
     for name in ms:
         work = attention_work(name, B, S, H, KV, D, 2, True)
@@ -761,8 +756,9 @@ def _time_training_shape(A, torch, F, q, k, v, g, out, lse, delta, row,
         log("phase 4: %s at the training shape: %.4f ms, bound %.4f ms "
             "(%s; %.1f GFLOP, %.3f GB)" % (name, ms[name], bound, by,
                                           work[0] / 1e9, work[1] / 1e9))
-    if "dkv_old_new" in row:
-        records["flash_bwd_dkv"]["dkv_old_new"] = row["dkv_old_new"]
+    if "dq_old_new" in row:
+        records["flash_bwd_dq"]["old_new"] = row["dq_old_new"]
+        records["flash_bwd_dkv"]["old_new"] = row["dkv_old_new"]
     pair = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
     log("phase 4: K2 + K3 %.4f ms against SDPA's fastest backward (%s) "
         "%.4f ms: %.2fx; backward by backend %s" % (
@@ -1007,8 +1003,7 @@ def time_gmm_shape(torch, G, x, w, dy, layout, n_rows, with_plain,
     bf16 out, as the backward launches it, and in f32), with their bounds,
     the library calls' and (with_plain) the plain versions' times and the
     largest |kernel - plain| of y and dw; with a baseline library, the
-    earlier K6 (f32 out, then the backward's cast to bf16) in turns with
-    this one."""
+    earlier K6 (bf16 out, then f32 out) in turns with this one."""
     tg, ta = layout["tile_group"], layout["tile_active"]
     S, (groups, D, F) = x.shape[0], w.shape
     bf16 = torch.bfloat16
@@ -1041,15 +1036,16 @@ def time_gmm_shape(torch, G, x, w, dy, layout, n_rows, with_plain,
             work, tensor_cores=True)
         rec[name + "tflop"] = work[0] / 1e12
     if baseline is not None:
-        def dw_old():
-            return baseline_gmm_dw(torch, G, baseline, x, dy, tg, ta, groups)
+        from metaflow_tpu_torch.ops import _build
 
-        rec["dw_old_new"] = old_new_ms(lambda: dw_old().to(bf16), dw_new, 5)
-        rec["dw_f32_old_new"] = old_new_ms(dw_old, lambda: G._gmm_dw_cuda(
-            x, dy, tg, ta, groups), 5)
         A = importlib.import_module("metaflow_tpu_torch.ops.attention")
-        rec["dw_old_new"]["row_err_new_vs_old"] = A.flash_out_error(
-            G._gmm_dw_cuda(x, dy, tg, ta, groups), dw_old())
+        rec["dw_old_new"], old, new = baseline_turns(_build, "gmm", baseline,
+                                                     dw_new, 5)
+        rec["dw_old_new"]["row_err_new_vs_old"] = A.flash_out_error(new, old)
+        rec["dw_f32_old_new"] = baseline_turns(
+            _build, "gmm", baseline,
+            lambda: G._gmm_dw_cuda(x, dy, tg, ta, groups), 5)[0]
+        del old, new
     if with_plain:
         rec["plain_ms"] = cuda_ms(lambda: G._gmm_fwd_plain(x, w, tg, ta), 3)
         rec["plain_dw_ms"] = cuda_ms(
@@ -1126,8 +1122,8 @@ def phase6_gmm(torch, G, FC, baseline=None):
                     records[key]["library_dx_ms"],
                     records[key]["library_dw_ms"]))
             if baseline is not None:
-                log("phase 6: %s: K6 earlier build + cast %.3f ms, this "
-                    "build bf16 out %.3f ms; f32 out %.3f / %.3f ms" % (
+                log("phase 6: %s: K6 earlier build %.3f ms, this build "
+                    "%.3f ms (bf16 out); f32 out %.3f / %.3f ms" % (
                         key, records[key]["dw_old_new"]["old_ms"],
                         records[key]["dw_old_new"]["new_ms"],
                         records[key]["dw_f32_old_new"]["old_ms"],
@@ -1281,7 +1277,8 @@ def active_params(params, cfg):
 
 
 KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
-    ("K4 flash_block_fwd", ("flash_block_fwd_bf16_kernel",
+    ("K4 flash_block_fwd", ("flash_fwd_wgmma_kernel<128, true>",
+                            "flash_fwd_wgmma_kernel<64, true>",
                             "flash_fwd_f32_kernel<128, true>",
                             "flash_fwd_f32_kernel<64, true>")),
     ("K5 gmm_fwd", ("gmm_fwd_wgmma", "gmm_fwd_f32")),
@@ -1460,11 +1457,12 @@ def block_fwd_limits(A, torch, dt):
             "m": A.FLASH_BLOCK_STATS_LIMIT, "lse": A.FLASH_BLOCK_STATS_LIMIT}
 
 
-def phase8a_block_fwd(A, FC, torch):
+def phase8a_block_fwd(A, FC, torch, baseline=None):
     """K4 against its plain version at every case of FC.BLOCK_FWD_CASES
     (shard views), then its times at bench_1b's 8k ring hop, diagonal and
-    full, beside the plain version's and SDPA's flash forward with lse.
-    Returns {'diag': record, 'full': record}."""
+    full, beside the plain version's and SDPA's flash forward with lse
+    (baseline: an earlier build of flash_fwd.cu, whose K4 is timed in turns
+    with this tree's). Returns {'diag': record, 'full': record}."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     records = {}
     for case in FC.BLOCK_FWD_CASES:
@@ -1481,8 +1479,14 @@ def phase8a_block_fwd(A, FC, torch):
                                  % json.dumps(row))
         if (B, S, H, KV, D) == RING_HOP:
             key = "diag" if diag else "full"
-            records[key] = time_block_fwd(A, torch, q, k, v, diag)
+            records[key] = time_block_fwd(A, torch, q, k, v, diag, baseline)
             row["times"] = records[key]
+            if "old_new" in records[key]:
+                log("phase 8a: K4 %s hop: earlier build %.4f ms, this build "
+                    "%.4f ms (turns %s)" % (
+                        key, records[key]["old_new"]["old_ms"],
+                        records[key]["old_new"]["new_ms"],
+                        records[key]["old_new"]["turns_ms"]))
             log("phase 8a: K4 %s hop: %.4f ms, bound %.4f ms (%s), plain "
                 "%.3f ms, SDPA flash fwd + lse %.4f ms" % (
                     key, records[key]["ms"], records[key]["bound_ms"],
@@ -1494,7 +1498,9 @@ def phase8a_block_fwd(A, FC, torch):
     return records
 
 
-def time_block_fwd(A, torch, q, k, v, diag):
+def time_block_fwd(A, torch, q, k, v, diag, baseline=None):
+    """K4's times on one hop beside its plain version, SDPA's flash forward
+    with its lse and (baseline) the earlier build's K4, in turns."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     scale = D ** -0.5
@@ -1510,7 +1516,7 @@ def time_block_fwd(A, torch, q, k, v, diag):
                 for t in (k, v))
     work = block_fwd_work(B, S, H, KV, D, 2, diag)
     bound, by = bound_ms(work, tensor_cores=True)
-    return {
+    record = {
         "ms": cuda_ms(lambda: A._flash_block_fwd_cuda(q, k, v, scale, diag),
                       20),
         "plain_ms": cuda_ms(
@@ -1520,6 +1526,15 @@ def time_block_fwd(A, torch, q, k, v, diag):
                 q_t, k_t, v_t, 0.0, diag, False, scale=scale), 20),
         "bound_ms": bound, "bound_by": by, "gflop": work[0] / 1e9,
         "gbytes": work[1] / 1e9, "max_abs_err": err}
+    if baseline is not None:
+        from metaflow_tpu_torch.ops import _build
+
+        times, old, new = baseline_turns(
+            _build, "flash_fwd", baseline,
+            lambda: A._flash_block_fwd_cuda(q, k, v, scale, diag), 20)
+        times["readings_new_vs_old"] = A.flash_block_readings(*new, old)
+        record["old_new"] = times
+    return record
 
 
 def _grads(torch, fn, leaves, g):
@@ -1855,18 +1870,19 @@ def main(argv=None):
                       if k.get("source")})
     t = time.perf_counter()
     jobs = _build.start_builds(sources)  # one nvcc per source, together
-    if baseline_root is not None:  # the earlier K3 and K6, for phases 4, 6
+    if baseline_root is not None:  # the earlier K2-K4, K6: phases 4, 6, 8a
         jobs += _build.start_builds(
-            ["flash_bwd", "gmm"], csrc=_baseline_csrc(baseline_root),
+            BASELINE_SOURCES, csrc=_baseline_csrc(baseline_root),
             build_dir=_build.BUILD_DIR / "baseline")
     _build.finish_builds(jobs)
     log("kernel builds: %.1fs for %s%s" % (
         time.perf_counter() - t, sources,
         "" if baseline_root is None
-        else " and the earlier flash_bwd, gmm of %s" % baseline_root))
+        else " and the earlier %s of %s" % (list(BASELINE_SOURCES),
+                                            baseline_root)))
     baseline = {} if baseline_root is None else {
         name: baseline_library(_build, baseline_root, name)
-        for name in ("flash_bwd", "gmm")}
+        for name in BASELINE_SOURCES}
     for name in sources:
         info = _build.build_info(name)
         log("%s: %s in %.1fs (%s)" % (
@@ -1915,7 +1931,7 @@ def main(argv=None):
     del moe_params  # the Mixtral weights: the ring phases need the memory
     gc.collect()
     torch.cuda.empty_cache()
-    block_records = phase8a_block_fwd(A, FC, torch)
+    block_records = phase8a_block_fwd(A, FC, torch, baseline.get("flash_fwd"))
     log("phase 8a done at %.1fs" % (time.perf_counter() - start))
     phase8b_ring_vs_flash(A, R, L, torch)
     log("phase 8b done at %.1fs" % (time.perf_counter() - start))
@@ -1963,6 +1979,12 @@ def main(argv=None):
                 full_library_ms=full["library_ms"],
                 launches_llama3_8b_8k_prefill=prefill_launches[
                     "flash_block_fwd"])
+            if "old_new" in diag:
+                line.update(
+                    earlier_build_ms=diag["old_new"]["old_ms"],
+                    in_turns_ms=diag["old_new"]["new_ms"],
+                    full_earlier_build_ms=full["old_new"]["old_ms"],
+                    full_in_turns_ms=full["old_new"]["new_ms"])
             ported.append(line)
             continue
         if k["name"].startswith("gmm"):
@@ -2004,7 +2026,8 @@ def main(argv=None):
                     library_skewed_ms=skewed["library_dw_ms"])
                 if "dw_old_new" in up:
                     line.update(
-                        earlier_build_with_cast_ms=up["dw_old_new"]["old_ms"],
+                        earlier_build_ms=up["dw_old_new"]["old_ms"],
+                        in_turns_ms=up["dw_old_new"]["new_ms"],
                         earlier_build_f32_out_ms=up["dw_f32_old_new"][
                             "old_ms"])
             ported.append(line)
@@ -2036,8 +2059,9 @@ def main(argv=None):
                                     rec["library_by_backend_ms"]))
             line["plain"] = "the plain backward: dq, dk, dv together"
             line["launches_ring_8k_step"] = ring_launches[k["name"]] // 5
-            if "dkv_old_new" in rec:
-                line["earlier_build_ms"] = rec["dkv_old_new"]["old_ms"]
+            if "old_new" in rec:
+                line["earlier_build_ms"] = rec["old_new"]["old_ms"]
+                line["in_turns_ms"] = rec["old_new"]["new_ms"]
         ported.append(line)
     log(card_line())
     log(json.dumps({"kernels": ported, "not_yet_ported": not_yet}))

@@ -143,8 +143,7 @@ def _check_kernel_inputs(q, k, v, g=None):
         raise ValueError("flash kernel: bad shapes q %s k %s v %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
     if q.dtype == torch.bfloat16:
-        # TMA (K1) and 16-byte async copies (K2-K4): every row must start
-        # 16-byte aligned
+        # TMA (K1-K4): every row must start 16-byte aligned
         for name, t in named:
             if not _rows_aligned(t):
                 raise ValueError("flash kernel: %s rows are not 16-byte "
@@ -226,7 +225,8 @@ def _flash_block_fwd_plain(q, k, v, scale, causal_diag):
 # once), lse an f32 sum over up to S keys, so both are held to
 # flash_stats_error's f32 rounding unit. On an H100 the sound kernel reads
 # at most 1.22 on acc / l and 0.021 on m and lse (chip_smoke.py's phase-8a
-# cases); faults planted by ops/fault_check.py flash_block_fwd read 7.6
+# cases; its mma.sync body and K1's wgmma body alike); faults planted by
+# ops/fault_check.py flash_block_fwd read 7.6
 # (the probabilities at 4 mantissa bits) to 722 on acc / l, and 105 (the
 # same fault's lse) to 7e4 on m or lse (m left in log2 units: 2.9e4).
 FLASH_BLOCK_ROW_LIMIT = 4.0
@@ -349,11 +349,12 @@ def _flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal):
 # by the bf16 roundings of dS and P that those flip: one flip moves a row
 # by half to one ulp of a term, which is most of the row in the early
 # causal rows that sum a few keys. On an H100 the sound kernels read at
-# most 1.98 for K2 and 0.73 for K3's wgmma body (chip_smoke.py's phase-4
-# shapes; under 0.01 inside the bench_1b training step); faults planted
-# by ops/fault_check.py read 8.8 (P at 4 mantissa bits in K3) and 11.2
-# (dS at 4 mantissa bits in K2) up to 8e8 (K2's causal mask dropped) and
-# inf (K3's phase bit not flipped: the watchdog's trap).
+# most 1.98 for K2 (its mma.sync and wgmma bodies alike) and 0.73 for
+# K3's wgmma body (chip_smoke.py's phase-4 shapes; under 0.01 inside the
+# bench_1b training step); faults planted by ops/fault_check.py read 8.8
+# (P at 4 mantissa bits in K3) and 11.2 (dS at 4 mantissa bits in K2) up
+# to 8e8 (K2's causal mask dropped) and inf (either's phase bit not
+# flipped: the watchdog's trap).
 FLASH_BWD_ROW_LIMIT = 4.0
 
 

@@ -6,8 +6,8 @@
 // metaflow_tpu/ops/attention.py (launched in `flash_block_bwd`):
 //   dq = sum over keys of dS K,  dS = P (dO V^T - delta) scale,
 //   P = exp(scale q k^T - lse)  (recomputed; natural-log lse, as K1 saves it).
-// One block owns 64 q rows of one (batch, q head) and walks the key tiles,
-// up to the diagonal when causal.
+// A work item owns 128 q rows of one (batch, q head) and walks the key
+// tiles of its kv head, up to the diagonal when causal.
 //
 // K3, flash_bwd_dkv, replaces `_flash_bwd_dkv_kernel`:
 //   dv = sum over queries of P^T dO,  dk = sum over queries of dS^T q.
@@ -32,18 +32,16 @@
 // 3.35 TB/s, so both are bound by operations. The training step launches
 // each once per layer (16 times for bench_1b).
 //
-// What the designs do about that bound. K3 is built for Hopper's full
-// rate, on K1's machinery (csrc/hopper.cuh): wgmma with the sums in
-// registers, fed by TMA through a ring of swizzled stages on mbarriers by
-// a producer warp, persistent blocks (see its section below). K2 keeps the
-// first design: every product on mma.sync m16n8k16 bf16 -> f32 with
-// ldmatrix fetches, its 64 q rows' q and dO in shared memory while the key
-// tiles stream through a two-stage cp.async pipeline, the score fragments
-// turned into the next product's A operand in registers, the blocks with
-// the most causal work launched first; its move onto K3's body is left to
-// later work. Both skip tiles wholly past the diagonal. The float32 path
-// (tests and the exact-gradient check, off the bf16 training path) uses
-// plain FMA with one warp per row.
+// What the designs do about that bound. Both bf16 kernels are built for
+// Hopper's full rate on K1's machinery (csrc/hopper.cuh): wgmma with the
+// sums in registers, fed by TMA through a ring of swizzled stages on
+// mbarriers by a producer warp, persistent blocks with the most causal work
+// first (see their sections below). K3 holds its keys and streams the q
+// tiles; K2 holds its q rows and dO and streams the key tiles, with two
+// consumer warpgroups sharing each stage. In both the score fragments
+// become the next product's register A operand, and tiles wholly past the
+// diagonal are skipped. The float32 path (tests and the exact-gradient
+// check, off the bf16 training path) uses plain FMA with one warp per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,171 +76,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-constexpr int NTHREADS = 128;  // four warps, 16 rows each
-
-// ---------------------------------------------------------------------------
-// K2, bf16: dq for 64 q rows, keys streamed in tiles of 32
-// ---------------------------------------------------------------------------
-
-constexpr int DQ_BM = 64;
-constexpr int DQ_BN = 32;
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_bf16_kernel(Params p) {
-  constexpr int LD = D + PAD;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sG = sQ + DQ_BM * LD;
-  __nv_bfloat16* sK = sG + DQ_BM * LD;      // [2][DQ_BN][LD]
-  __nv_bfloat16* sV = sK + 2 * DQ_BN * LD;  // [2][DQ_BN][LD]
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // most causal work first
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = qb * DQ_BM;
-  const int S = p.S;
-
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* gg =
-      static_cast<const __nv_bfloat16*>(p.g) + b * p.g_sb + h * p.g_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int c = tid; c < DQ_BM * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8, row = q0 + r;
-    const bool ok = row < S;
-    const long long rr = ok ? row : 0;
-    cp_async_16(sQ + r * LD + col, qg + rr * p.q_ss + col, ok);
-    cp_async_16(sG + r * LD + col, gg + rr * p.g_ss + col, ok);
-  }
-  auto load_kv = [&](int tile, int stage) {
-    __nv_bfloat16* dK = sK + stage * DQ_BN * LD;
-    __nv_bfloat16* dV = sV + stage * DQ_BN * LD;
-    for (int c = tid; c < DQ_BN * CPR; c += NTHREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8, row = tile * DQ_BN + r;
-      const bool ok = row < S;
-      const long long rr = ok ? row : 0;
-      cp_async_16(dK + r * LD + col, kg + rr * p.k_ss + col, ok);
-      cp_async_16(dV + r * LD + col, vg + rr * p.v_ss + col, ok);
-    }
-  };
-
-  int n_tiles = (S + DQ_BN - 1) / DQ_BN;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + DQ_BM + DQ_BN - 1) / DQ_BN);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const float scale_log2 = p.scale * kLog2e;
-  const int row_a = q0 + warp * 16 + g;  // this thread's two rows
-  const int row_b = row_a + 8;
-  const long long stat = static_cast<long long>(bh) * S;
-  const float lse2[2] = {row_a < S ? p.lse[stat + row_a] * kLog2e : 0.f,
-                         row_b < S ? p.lse[stat + row_b] * kLog2e : 0.f};
-  const float dlt[2] = {row_a < S ? p.delta[stat + row_a] : 0.f,
-                        row_b < S ? p.delta[stat + row_b] : 0.f};
-
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, (t + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(qf[kk], sQ, LD, warp * 16, kk * 16, lane);
-        load_a(gf[kk], sG, LD, warp * 16, kk * 16, lane);
-      }
-    }
-    const __nv_bfloat16* cK = sK + (t & 1) * DQ_BN * LD;
-    const __nv_bfloat16* cV = sV + (t & 1) * DQ_BN * LD;
-
-    // s = q k^T and dp = dO v^T for this warp's 16 rows x DQ_BN keys
-    float s[DQ_BN / 8][4], dp[DQ_BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < DQ_BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < DQ_BN / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        load_b_nk(bk, cK, LD, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-        load_b_nk(bv, cV, LD, np * 16, kk * 16, lane);
-        mma_bf16(dp[2 * np], gf[kk], bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], gf[kk], bv[2], bv[3]);
-      }
-    }
-
-    // p = exp(scale s - lse), masked; ds = p (dp - delta) scale, kept in s
-    const int k0 = t * DQ_BN;
-    const bool masked =
-        (k0 + DQ_BN > S) || (p.causal && k0 + DQ_BN - 1 > q0 + warp * 16);
-#pragma unroll
-    for (int j = 0; j < DQ_BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float pv = exp2f(fmaf(s[j][e], scale_log2, -lse2[i]));
-        if (masked) {
-          const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-          const int row = i ? row_b : row_a;
-          if (key >= S || (p.causal && key > row)) pv = 0.f;
-        }
-        s[j][e] = pv * (dp[j][e] - dlt[i]) * p.scale;
-      }
-    }
-
-    // dq += ds k, ds rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < DQ_BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
-        uint32_t bk[4];
-        load_b_kn(bk, cK, LD, kk * 16, dp2 * 16, lane);
-        mma_bf16(acc[2 * dp2], a, bk[0], bk[1]);
-        mma_bf16(acc[2 * dp2 + 1], a, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-
-  float* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t4 * 2;
-    if (row_a < S)
-      *reinterpret_cast<float2*>(dqg + row_a * p.dq_ss + col) =
-          make_float2(acc[n][0], acc[n][1]);
-    if (row_b < S)
-      *reinterpret_cast<float2*>(dqg + row_b * p.dq_ss + col) =
-          make_float2(acc[n][2], acc[n][3]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K3, bf16: wgmma kernel, warp-specialised and persistent
@@ -496,6 +329,248 @@ __global__ void __launch_bounds__(KV_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K2, bf16: wgmma kernel on K3's machinery, warp-specialised and persistent
+// ---------------------------------------------------------------------------
+//
+// One block per SM walks the work items, (128 q rows, batch and q head),
+// the latest q blocks (the most causal work) first. Warpgroup 0 is the
+// producer: one warp loads each item's Q and dO, which stay in shared
+// memory for the item, and its lanes copy the item's lse (in log2 units)
+// and delta rows beside them; lane 0 streams the K and V tiles of 64 keys
+// of the item's kv head (up to the diagonal when causal) through a ring of
+// DQ_STAGES stages that runs on across items, all by TMA from the 4D tensor
+// maps of K3 (Q and dO in boxes of 128 rows, so no box starts past S). Q
+// with dO, and each stage, have their own full and empty mbarriers, so the
+// next item's rows and first tiles load while the consumers finish the
+// current one. Warpgroups 1 and 2 are the consumers, 64 q rows each, both
+// reading every stage. Per key tile a consumer runs S = Q K^T and
+// dP = dO V^T as wgmma m64n64k16 with both operands K-major in shared
+// memory, forms P = exp(scale S - lse) and dS = P (dP - delta) scale in its
+// registers, rounds dS to bf16 as the register A operand and runs
+// dq += dS K as wgmma m64nDk16 with K MN-major (the transpose bit), as K3
+// runs dK += dS^T Q. dq stays in f32 registers over the item (D/2 a
+// thread) and is written once. Under causal masking a consumer skips the
+// products of a tile wholly past its rows (the item's last tile, for
+// consumer 0), and only a tile that reaches past the diagonal or past S is
+// masked. Registers: dq, S, dP and the dS operand take D/2 + 80 a thread
+// (144 at D 128) under setmaxnreg's 232; shared memory holds Q and dO
+// [128][D] and the K, V stages [64][D] (199 KB at D 128).
+
+constexpr int DQ_BM = 128;         // q rows of a work item, 64 a consumer
+constexpr int DQ_BN = 64;          // keys of a streamed K / V tile
+constexpr int DQ_STAGES = 4;       // of the K / V ring
+constexpr int DQ_THREADS = 384;    // producer and two consumer warpgroups
+constexpr int DQ_QBOX = DQ_BM * 128;  // bytes of one [128 rows][64 d] box
+
+template <int D>
+constexpr int dq_smem_bytes() {  // Q, dO, the stages, lse, delta, barriers
+  return 1024 + 2 * (D / 64) * DQ_QBOX + 2 * DQ_STAGES * (D / 64) * KV_BOX +
+         2 * DQ_BM * 4 + (2 + 2 * DQ_STAGES) * 8;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_g,
+                              Params p, int bh_count) {
+  constexpr int ROWS_BYTES = (D / 64) * DQ_QBOX;  // Q or dO, 128 rows
+  constexpr int TILE_BYTES = (D / 64) * KV_BOX;   // a K or V tile, 64 keys
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = align_1024(smem_raw);
+  unsigned char* sG = sQ + ROWS_BYTES;              // dO
+  unsigned char* sK = sG + ROWS_BYTES;              // [DQ_STAGES]
+  unsigned char* sV = sK + DQ_STAGES * TILE_BYTES;  // [DQ_STAGES]
+  float* sL = reinterpret_cast<float*>(sV + DQ_STAGES * TILE_BYTES);
+  float* sD = sL + DQ_BM;  // [DQ_BM] each
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sD + DQ_BM);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full = full_q + 2;          // [DQ_STAGES]
+  uint64_t* empty = full + DQ_STAGES;   // [DQ_STAGES]
+
+  const int S = p.S, group = p.H / p.KV;
+  const int n_qb = (S + DQ_BM - 1) / DQ_BM;
+  const int n_items = n_qb * bh_count;
+  const int all_tiles = (S + DQ_BN - 1) / DQ_BN;
+  // the key tiles of the rows before `row_end`
+  auto tiles_to = [&](int row_end) {
+    return p.causal ? min(all_tiles, (row_end + DQ_BN - 1) / DQ_BN)
+                    : all_tiles;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 32);  // every producer lane (lse, delta rows)
+    mbar_init(empty_q, 2);  // one thread of each consumer
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup: one warp loads
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;  // key tiles loaded so far, across items
+    for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
+      int qb, bh;
+      latest_q_block_first(i, n_qb, bh_count, qb, bh);
+      const int b = bh / p.H, h = bh % p.H, kvh = h / group;
+      const int q0 = qb * DQ_BM;
+      mbar_wait(empty_q, (j & 1) ^ 1);
+      const long long stat = static_cast<long long>(bh) * S;
+      for (int r = lane; r < DQ_BM; r += 32) {
+        const int row = q0 + r;
+        sL[r] = row < S ? p.lse[stat + row] * kLog2e : 0.f;
+        sD[r] = row < S ? p.delta[stat + row] : 0.f;
+      }
+      if (lane == 0) {  // its arrival, with the rows' bytes
+        mbar_arrive_expect_tx(full_q, 2 * ROWS_BYTES);
+#pragma unroll
+        for (int d = 0; d < D / 64; ++d) {
+          tma_load_4d(sQ + d * DQ_QBOX, &tm_q, full_q, d * 64, h, q0, b);
+          tma_load_4d(sG + d * DQ_QBOX, &tm_g, full_q, d * 64, h, q0, b);
+        }
+      } else {
+        mbar_arrive(full_q);
+      }
+      if (lane != 0) continue;
+      const int n_tiles = tiles_to(q0 + DQ_BM);
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int st = it % DQ_STAGES;
+        mbar_wait(&empty[st], ((it / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * TILE_BYTES);
+#pragma unroll
+        for (int d = 0; d < D / 64; ++d) {
+          tma_load_4d(sK + st * TILE_BYTES + d * KV_BOX, &tm_k, &full[st],
+                      d * 64, kvh, t * DQ_BN, b);
+          tma_load_4d(sV + st * TILE_BYTES + d * KV_BOX, &tm_v, &full[st],
+                      d * 64, kvh, t * DQ_BN, b);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: 64 q rows of each item
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int t4 = lane & 3;
+    const float scale_log2 = p.scale * kLog2e;
+    const unsigned char* sQc = sQ + c * 64 * 128;  // rows c*64.. of each box
+    const unsigned char* sGc = sG + c * 64 * 128;
+    float sp[DQ_BN / 2];   // S: 64 q rows x 64 keys
+    float dps[DQ_BN / 2];  // dP, then dS
+    uint32_t da[DQ_BN / 16][4];  // dS in bf16: the A operand of dS K
+    float dq[D / 2];
+    int it = 0;  // key tiles consumed so far, across items
+    for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
+      int qb, bh;
+      latest_q_block_first(i, n_qb, bh_count, qb, bh);
+      const int b = bh / p.H, h = bh % p.H;
+      const int q0 = qb * DQ_BM;
+      const int first_row = q0 + c * 64 + warp * 16;  // this warp's
+      const int row_a = first_row + lane / 4, row_b = row_a + 8;
+      const int n_tiles = tiles_to(q0 + DQ_BM);
+      const int my_tiles = tiles_to(q0 + c * 64 + 64);  // reach my rows
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+      mbar_wait(full_q, j & 1);
+      const float lse2[2] = {sL[row_a - q0], sL[row_b - q0]};
+      const float dlt[2] = {sD[row_a - q0], sD[row_b - q0]};
+
+      for (int t = 0; t < n_tiles; ++t, ++it) {
+        const int st = it % DQ_STAGES;
+        mbar_wait(&full[st], (it / DQ_STAGES) & 1);
+        if (t < my_tiles) {
+          const unsigned char* cK = sK + st * TILE_BYTES;
+          const unsigned char* cV = sV + st * TILE_BYTES;
+
+          // S = Q K^T and dP = dO V^T, both operands K-major
+          fence_operand(sp);
+          fence_operand(dps);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const int a_off = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
+            const int b_off = (kk / 4) * KV_BOX + (kk % 4) * 32;
+            wgmma_m64n64k16_ss<0>(sp, desc_k_major(sQc + a_off),
+                                  desc_k_major(cK + b_off), kk > 0);
+          }
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const int a_off = (kk / 4) * DQ_QBOX + (kk % 4) * 32;
+            const int b_off = (kk / 4) * KV_BOX + (kk % 4) * 32;
+            wgmma_m64n64k16_ss<0>(dps, desc_k_major(sGc + a_off),
+                                  desc_k_major(cV + b_off), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(sp);
+          fence_operand(dps);
+          // Q, dO, lse and delta read for good after the last products
+          if (t == my_tiles - 1 && tid == 0) mbar_arrive(empty_q);
+
+          // P = exp(scale S - lse), masked; dS = P (dP - delta) scale,
+          // rounded to bf16 as the next product's A operand (accumulator
+          // layout = register A layout: key groups 2kk, 2kk + 1 form k16
+          // step kk)
+          const int k0 = t * DQ_BN;
+          const bool masked =
+              (k0 + DQ_BN > S) || (p.causal && k0 + DQ_BN - 1 > first_row);
+#pragma unroll
+          for (int jj = 0; jj < DQ_BN / 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = e >> 1;
+              float pv = fast_exp2(fmaf(sp[4 * jj + e], scale_log2, -lse2[r]));
+              if (masked) {
+                const int key = k0 + jj * 8 + t4 * 2 + (e & 1);
+                const int qrow = r ? row_b : row_a;
+                if (key >= S || (p.causal && key > qrow)) pv = 0.f;
+              }
+              dps[4 * jj + e] = pv * (dps[4 * jj + e] - dlt[r]) * p.scale;
+            }
+            da[jj / 2][(jj & 1) * 2] = pack_bf16(dps[4 * jj], dps[4 * jj + 1]);
+            da[jj / 2][(jj & 1) * 2 + 1] =
+                pack_bf16(dps[4 * jj + 2], dps[4 * jj + 3]);
+          }
+
+          // dq += dS K: K [64 keys][D] is B, MN-major
+          fence_operand(dq);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DQ_BN / 16; ++kk) {
+            const uint64_t kt = desc_mn_major(cK + kk * 16 * 128, KV_BOX);
+            if constexpr (D == 128)
+              wgmma_m64n128k16_rs<1>(dq, da[kk], kt, 1);
+            else
+              wgmma_m64n64k16_rs<1>(dq, da[kk], kt, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_operand(dq);
+        }
+        if (tid == 0) mbar_arrive(&empty[st]);  // K, V of the stage, read
+      }
+
+      float* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        const int col = jj * 8 + t4 * 2;
+        if (row_a < S)
+          *reinterpret_cast<float2*>(dqg + row_a * p.dq_ss + col) =
+              make_float2(dq[4 * jj], dq[4 * jj + 1]);
+        if (row_b < S)
+          *reinterpret_cast<float2*>(dqg + row_b * p.dq_ss + col) =
+              make_float2(dq[4 * jj + 2], dq[4 * jj + 3]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 kernels: one warp per row, FMA only
 // ---------------------------------------------------------------------------
 
@@ -662,36 +737,19 @@ __global__ void __launch_bounds__(F32_ROWS * 32)
 // launches
 // ---------------------------------------------------------------------------
 
+// A float32 kernel on grid x F32_ROWS warps.
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
-                   const Params& p, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, threads, smem, stream>>>(p);
+cudaError_t launch_f32(Kernel kernel, dim3 grid, const Params& p,
+                       cudaStream_t stream) {
+  kernel<<<grid, F32_ROWS * 32, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const Params& p, int B, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    constexpr int smem = (2 * DQ_BM + 4 * DQ_BN) * (D + PAD) * 2;
-    return launch(flash_bwd_dq_bf16_kernel<D>,
-                  dim3((p.S + DQ_BM - 1) / DQ_BM, B * p.H), NTHREADS, smem,
-                  p, st);
-  }
-  return launch(flash_bwd_dq_f32_kernel<D>,
-                dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.H),
-                F32_ROWS * 32, 0, p, st);
-}
-
 // The 4D tensor map of a [B, S, heads, D] bf16 tensor read through its
-// element strides: boxes of 64 columns of one head and KV_BM rows.
+// element strides: boxes of 64 columns of one head and `rows` rows.
 cudaError_t make_rows_map(CUtensorMap* map, const void* base, int B, int S,
                           int heads, int D, long long sb, long long ss,
-                          long long sh) {
+                          long long sh, int rows = KV_BM) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
@@ -699,7 +757,7 @@ cudaError_t make_rows_map(CUtensorMap* map, const void* base, int B, int S,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, KV_BM, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   return make_map_bf16(map, base, 4, dims, strides, box);
 }
 
@@ -710,9 +768,8 @@ template <int D>
 cudaError_t launch_dkv(const Params& p, int B, int dtype, int device,
                        cudaStream_t st) {
   if (dtype != 1)
-    return launch(flash_bwd_dkv_f32_kernel<D>,
-                  dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.KV),
-                  F32_ROWS * 32, 0, p, st);
+    return launch_f32(flash_bwd_dkv_f32_kernel<D>,
+                      dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.KV), p, st);
   CUtensorMap tm_q, tm_k, tm_v, tm_g;
   cudaError_t err = make_rows_map(&tm_q, p.q, B, p.S, p.H, D, p.q_sb,
                                   p.q_ss, p.q_sh);
@@ -737,13 +794,48 @@ cudaError_t launch_dkv(const Params& p, int B, int dtype, int device,
   return cudaGetLastError();
 }
 
+// K2: in bf16 the tensor maps (Q and dO in boxes of DQ_BM rows, K and V of
+// DQ_BN), then one persistent block per SM, at most one per work item; in
+// f32 the FMA kernel.
+template <int D>
+cudaError_t launch_dq(const Params& p, int B, int dtype, int device,
+                      cudaStream_t st) {
+  if (dtype != 1)
+    return launch_f32(flash_bwd_dq_f32_kernel<D>,
+                      dim3((p.S + F32_ROWS - 1) / F32_ROWS, B * p.H), p, st);
+  static_assert(DQ_BN == KV_BM, "K and V tiles use K3's row boxes");
+  CUtensorMap tm_q, tm_k, tm_v, tm_g;
+  cudaError_t err = make_rows_map(&tm_q, p.q, B, p.S, p.H, D, p.q_sb,
+                                  p.q_ss, p.q_sh, DQ_BM);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_k, p.k, B, p.S, p.KV, D, p.k_sb, p.k_ss, p.k_sh);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_v, p.v, B, p.S, p.KV, D, p.v_sb, p.v_ss, p.v_sh);
+  if (err == cudaSuccess)
+    err = make_rows_map(&tm_g, p.g, B, p.S, p.H, D, p.g_sb, p.g_ss, p.g_sh,
+                        DQ_BM);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = dq_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int items = (p.S + DQ_BM - 1) / DQ_BM * B * p.H;
+  const int sms = sm_count(device);
+  const int grid = items < sms ? items : sms;
+  if (grid <= 0) return cudaErrorInvalidValue;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<grid, DQ_THREADS, smem, st>>>(tm_q, tm_k, tm_v, tm_g, p, B * p.H);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch(const Params& p, int B, int D, int dtype, bool dq,
                      int device, cudaStream_t st) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if (B == 0 || p.S == 0 || p.H == 0) return cudaSuccess;
-  if (D == 128) return dq ? launch_dq<128>(p, B, dtype, st)
+  if (D == 128) return dq ? launch_dq<128>(p, B, dtype, device, st)
                           : launch_dkv<128>(p, B, dtype, device, st);
-  if (D == 64) return dq ? launch_dq<64>(p, B, dtype, st)
+  if (D == 64) return dq ? launch_dq<64>(p, B, dtype, device, st)
                          : launch_dkv<64>(p, B, dtype, device, st);
   return cudaErrorInvalidValue;
 }
@@ -810,4 +902,9 @@ extern "C" int flash_bwd_dkv(FLASH_BWD_ARGS) {
 // The dynamic shared memory of one bf16 K3 block at head dim D, in bytes.
 extern "C" int flash_bwd_dkv_smem_bytes(int D) {
   return D == 128 ? kv_smem_bytes<128>() : kv_smem_bytes<64>();
+}
+
+// The dynamic shared memory of one bf16 K2 block at head dim D, in bytes.
+extern "C" int flash_bwd_dq_smem_bytes(int D) {
+  return D == 128 ? dq_smem_bytes<128>() : dq_smem_bytes<64>();
 }

@@ -15,8 +15,8 @@
 // running max m and denominator l in natural-log units (m = max s,
 // l = sum exp(s - m)), which the ring merges across hops; `causal` is then
 // the same-shard diagonal mask, and a hop from an earlier shard runs every
-// key tile. In f32 K1 and K4 share one kernel under a template flag
-// (kBlock) whose epilogues differ; in bf16 each has its own (below).
+// key tile. K1 and K4 share one kernel in each dtype, under a template
+// flag (kBlock) whose epilogues differ.
 //
 // Both read q [B, S, H, D] and k, v [B, S, KV, D] through their strides
 // (kv head h / (H / KV), no GQA repeat and no head fold copy; ring shards
@@ -32,16 +32,14 @@
 // against about 67 MB (q, k, v, the f32 acc: 20 us). Both are bound by
 // operations.
 //
-// What the designs do about that bound. Both products run on the tensor
+// What the design does about that bound. Both products run on the tensor
 // cores, tiles past the diagonal are skipped (half the causal work), and
-// the blocks with the most work launch first. K1 is built for Hopper's
-// full rate: wgmma with the sums in registers, fed by TMA through a ring
-// of swizzled stages on mbarriers by a producer warp, with two consumer
-// warpgroups of 64 q rows each (see its section below). K4 keeps the first
-// design: 64 q rows in four warps on mma.sync m16n8k16 with ldmatrix
-// fetches, 64-key K/V tiles through a two-stage cp.async pipeline; its
-// move onto K1's body is left to later work. The float32 path (tests, off
-// the main path) uses plain FMA in a warp-per-row kernel.
+// the work items with the most work go first. The bf16 kernel is built for
+// Hopper's full rate: wgmma with the sums in registers, fed by TMA through
+// a ring of swizzled stages on mbarriers by a producer warp, with two
+// consumer warpgroups of 64 q rows each (see its section below); K1 and K4
+// differ only in the epilogue. The float32 path (tests, off the main path)
+// uses plain FMA in a warp-per-row kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,213 +71,10 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// K4: bf16 mma.sync kernel
-// ---------------------------------------------------------------------------
-
-constexpr int BM = 64;      // q rows per block, 16 per warp
-constexpr int BN = 64;      // keys per K/V tile
-constexpr int NTHREADS = 128;
-
-// Fragment layouts: see tile_mma.cuh.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_block_fwd_bf16_kernel(Params p) {
-  constexpr int LD = D + PAD;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + BM * LD;      // [2][BN][LD]
-  __nv_bfloat16* sV = sK + 2 * BN * LD;  // [2][BN][LD]
-
-  const int qb = gridDim.x - 1 - blockIdx.x;  // most causal work first
-  const int bh = blockIdx.y;
-  const int b = bh / p.H, h = bh % p.H;
-  const int kvh = h / (p.H / p.KV);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = qb * BM;
-  const int S = p.S;
-
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int c = tid; c < BM * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8, row = q0 + r;
-    const bool ok = row < S;
-    cp_async_16(sQ + r * LD + col, qg + (ok ? row : 0) * p.q_ss + col, ok);
-  }
-  auto load_kv = [&](int tile, int stage) {
-    __nv_bfloat16* dK = sK + stage * BN * LD;
-    __nv_bfloat16* dV = sV + stage * BN * LD;
-    for (int c = tid; c < BN * CPR; c += NTHREADS) {
-      const int r = c / CPR, col = (c % CPR) * 8, row = tile * BN + r;
-      const bool ok = row < S;
-      const long long rr = ok ? row : 0;
-      cp_async_16(dK + r * LD + col, kg + rr * p.k_ss + col, ok);
-      cp_async_16(dV + r * LD + col, vg + rr * p.v_ss + col, ok);
-    }
-  };
-
-  int n_tiles = (S + BN - 1) / BN;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + BM + BN - 1) / BN);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const float scale_log2 = p.scale * kLog2e;
-  const int row_a = q0 + warp * 16 + g;  // this thread's two rows
-  const int row_b = row_a + 8;
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max, log2 units
-  float l_r[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, (t + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                kk * 16 + (lane >> 4) * 8);
-    }
-    const __nv_bfloat16* cK = sK + (t & 1) * BN * LD;
-    const __nv_bfloat16* cV = sV + (t & 1) * BN * LD;
-
-    // scores s = q k^T for this warp's 16 rows x BN keys
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, cK + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    // scale in f32, mask, online softmax
-    const int k0 = t * BN;
-    const bool masked = (k0 + BN > S) || (p.causal && k0 + BN - 1 > q0 + warp * 16);
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (masked) {
-          const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-          const int row = (e < 2) ? row_a : row_b;
-          if (key >= S || (p.causal && key > row)) x = -INFINITY;
-        }
-        s[j][e] = x;
-      }
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-    float corr[2], mu[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      mu[i] = (mx[i] == -INFINITY) ? 0.f : mx[i];  // a row with no key yet
-      corr[i] = exp2f(m_r[i] - mu[i]);
-      m_r[i] = mx[i];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mu[0]);
-      s[j][1] = exp2f(s[j][1] - mu[0]);
-      s[j][2] = exp2f(s[j][2] - mu[1]);
-      s[j][3] = exp2f(s[j][3] - mu[1]);
-      rs[0] += s[j][0] + s[j][1];
-      rs[1] += s[j][2] + s[j][3];
-    }
-    l_r[0] = l_r[0] * corr[0] + rs[0];
-    l_r[1] = l_r[1] * corr[1] + rs[1];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // acc += p v: the score C fragments of two key groups form one A
-    // fragment, with p rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, cV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's load
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-  }
-  // the accumulator unnormalized in f32, m back in natural-log units (the
-  // loop keeps it in log2 units), l to match it
-  float* ag = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + t4 * 2;
-    if (row_a < S)
-      *reinterpret_cast<float2*>(ag + row_a * p.o_ss + col) =
-          make_float2(acc[n][0], acc[n][1]);
-    if (row_b < S)
-      *reinterpret_cast<float2*>(ag + row_b * p.o_ss + col) =
-          make_float2(acc[n][2], acc[n][3]);
-  }
-  if (t4 == 0) {
-    const long long base = static_cast<long long>(bh) * S;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = i ? row_b : row_a;
-      if (row < S) {
-        p.lse[base + row] = m_r[i] * kLn2;
-        p.l[base + row] = l_r[i];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1: bf16 wgmma kernel, warp-specialised and persistent
+// K1 and K4: bf16 wgmma kernel, warp-specialised and persistent
 // ---------------------------------------------------------------------------
 //
+// One body for both; the template flag kBlock picks K4's epilogue (below).
 // One block per SM walks the work items, (128 q rows, batch and head),
 // heaviest causal rows first. Warpgroup 0 is the producer: one thread loads
 // each item's Q and streams its K and V tiles of 128 keys through a
@@ -304,6 +99,12 @@ __global__ void __launch_bounds__(NTHREADS)
 // of S, O and P together do not fit beside each other), and the softmax's
 // exponentials, one per score on the special-function units, take about
 // half as long as the two products.
+//
+// K4 (kBlock) runs the same loop on a ring hop's shard views: `causal` is
+// the same-shard diagonal mask, and a full hop (causal 0) runs every key
+// tile unmasked but for rows and keys past S. Its epilogue writes acc
+// unnormalised in f32, m converted back from the loop's log2 units to
+// natural-log units, and l, through the caller's strides; no O and no lse.
 
 constexpr int FA_BM = 128;  // q rows per work item
 constexpr int FA_BN = 128;  // keys per K/V tile
@@ -317,15 +118,7 @@ constexpr int fa_smem_bytes() {  // Q, the K/V stages, the barriers
          (2 + 4 * FA_STAGES) * 8;
 }
 
-// Work item i of a grid of n_qb q blocks x bh (batch, head) pairs: the
-// heaviest q blocks first.
-__device__ __forceinline__ void fa_item(int i, int n_qb, int bh_count,
-                                        int& qb, int& bh) {
-  qb = n_qb - 1 - i / bh_count;
-  bh = i % bh_count;
-}
-
-template <int D>
+template <int D, bool kBlock>
 __global__ void __launch_bounds__(FA_THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -371,7 +164,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     int it = 0;  // key tiles loaded so far, across items
     for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
       int qb, bh;
-      fa_item(i, n_qb, bh_count, qb, bh);
+      latest_q_block_first(i, n_qb, bh_count, qb, bh);
       const int b = bh / p.H, h = bh % p.H, kvh = h / (p.H / p.KV);
       mbar_wait(empty_q, (j & 1) ^ 1);
       mbar_arrive_expect_tx(full_q, TILE_BYTES);
@@ -439,7 +232,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
     int it = 0;  // key tiles consumed so far, across items
     for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
       int qb, bh;
-      fa_item(i, n_qb, bh_count, qb, bh);
+      latest_q_block_first(i, n_qb, bh_count, qb, bh);
       const int b = bh / p.H, h = bh % p.H;
       const int first_row = qb * FA_BM + c * 64 + warp * 16;  // this warp's
       const int row_a = first_row + lane / 4, row_b = row_a + 8;
@@ -538,22 +331,48 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
         l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
       }
-      __nv_bfloat16* og =
-          static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+      if constexpr (kBlock) {
+        // K4: acc unnormalised in f32, m back in natural-log units, l
+        float* ag = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        const int col = jj * 8 + t4 * 2;
-        if (row_a < p.S)
-          *reinterpret_cast<uint32_t*>(og + row_a * p.o_ss + col) =
-              pack_bf16(o[4 * jj] / l_run[0], o[4 * jj + 1] / l_run[0]);
-        if (row_b < p.S)
-          *reinterpret_cast<uint32_t*>(og + row_b * p.o_ss + col) =
-              pack_bf16(o[4 * jj + 2] / l_run[1], o[4 * jj + 3] / l_run[1]);
-      }
-      if (t4 == 0) {
-        float* lse = p.lse + static_cast<long long>(bh) * p.S;
-        if (row_a < p.S) lse[row_a] = m_run[0] * kLn2 + logf(l_run[0]);
-        if (row_b < p.S) lse[row_b] = m_run[1] * kLn2 + logf(l_run[1]);
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int col = jj * 8 + t4 * 2;
+          if (row_a < p.S)
+            *reinterpret_cast<float2*>(ag + row_a * p.o_ss + col) =
+                make_float2(o[4 * jj], o[4 * jj + 1]);
+          if (row_b < p.S)
+            *reinterpret_cast<float2*>(ag + row_b * p.o_ss + col) =
+                make_float2(o[4 * jj + 2], o[4 * jj + 3]);
+        }
+        if (t4 == 0) {
+          const long long base = static_cast<long long>(bh) * p.S;
+          if (row_a < p.S) {
+            p.lse[base + row_a] = m_run[0] * kLn2;
+            p.l[base + row_a] = l_run[0];
+          }
+          if (row_b < p.S) {
+            p.lse[base + row_b] = m_run[1] * kLn2;
+            p.l[base + row_b] = l_run[1];
+          }
+        }
+      } else {
+        __nv_bfloat16* og =
+            static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int col = jj * 8 + t4 * 2;
+          if (row_a < p.S)
+            *reinterpret_cast<uint32_t*>(og + row_a * p.o_ss + col) =
+                pack_bf16(o[4 * jj] / l_run[0], o[4 * jj + 1] / l_run[0]);
+          if (row_b < p.S)
+            *reinterpret_cast<uint32_t*>(og + row_b * p.o_ss + col) =
+                pack_bf16(o[4 * jj + 2] / l_run[1], o[4 * jj + 3] / l_run[1]);
+        }
+        if (t4 == 0) {
+          float* lse = p.lse + static_cast<long long>(bh) * p.S;
+          if (row_a < p.S) lse[row_a] = m_run[0] * kLn2 + logf(l_run[0]);
+          if (row_b < p.S) lse[row_b] = m_run[1] * kLn2 + logf(l_run[1]);
+        }
       }
     }
   }
@@ -665,11 +484,11 @@ cudaError_t make_rows_map(CUtensorMap* map, const void* base, int B, int S,
   return make_map_bf16(map, base, 4, dims, strides, box);
 }
 
-// K1 in bf16: the tensor maps (encoding reads no device memory), then one
-// persistent block per SM, at most one per work item.
-template <int D>
-cudaError_t launch_k1_bf16(const Params& p, int B, int device,
-                           cudaStream_t stream) {
+// K1 and K4 in bf16: the tensor maps (encoding reads no device memory),
+// then one persistent block per SM, at most one per work item.
+template <int D, bool kBlock>
+cudaError_t launch_bf16(const Params& p, int B, int device,
+                        cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err =
       make_rows_map<D>(&tm_q, p.q, B, p.S, p.H, p.q_sb, p.q_ss, p.q_sh);
@@ -679,7 +498,7 @@ cudaError_t launch_k1_bf16(const Params& p, int B, int device,
     err = make_rows_map<D>(&tm_v, p.v, B, p.S, p.KV, p.v_sb, p.v_ss, p.v_sh);
   if (err != cudaSuccess) return err;
   constexpr int smem = fa_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+  err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D, kBlock>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return err;
@@ -687,29 +506,9 @@ cudaError_t launch_k1_bf16(const Params& p, int B, int device,
   const int sms = sm_count(device);
   const int grid = items < sms ? items : sms;
   if (grid <= 0) return cudaErrorInvalidValue;
-  flash_fwd_wgmma_kernel<D>
+  flash_fwd_wgmma_kernel<D, kBlock>
       <<<grid, FA_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p, B * p.H);
   return cudaGetLastError();
-}
-
-// K4 in bf16.
-template <int D>
-cudaError_t launch_k4_bf16(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = (BM + 4 * BN) * (D + PAD) * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_block_fwd_bf16_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BM - 1) / BM, B * p.H);
-  flash_block_fwd_bf16_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int D, bool kBlock>
-cudaError_t launch_bf16(const Params& p, int B, int device,
-                        cudaStream_t stream) {
-  if (kBlock) return launch_k4_bf16<D>(p, B, stream);
-  return launch_k1_bf16<D>(p, B, device, stream);
 }
 
 template <int D, bool kBlock>
@@ -778,7 +577,8 @@ extern "C" int flash_block_fwd(const void* q, const void* k, const void* v,
   return launch<true>(p, B, D, dtype, device, stream);
 }
 
-// The dynamic shared memory of one bf16 K1 block at head dim D, in bytes.
+// The dynamic shared memory of one bf16 K1 or K4 block at head dim D, in
+// bytes.
 extern "C" int flash_fwd_smem_bytes(int D) {
   return D == 128 ? fa_smem_bytes<128>() : fa_smem_bytes<64>();
 }

@@ -1,10 +1,10 @@
-// Hopper (sm_90a) primitives shared by the wgmma/TMA kernels (K1 in
-// flash_fwd.cu, K3 in flash_bwd.cu, K5 and K6 in gmm.cu), as inline PTX:
-// mbarriers, TMA tensor loads, the shared-memory matrix descriptor for the
-// 128-byte swizzle, wgmma (fence, commit, wait, m64nNk16 bf16 -> f32 with A
-// in shared memory or in registers), named barriers, setmaxnreg, and on the
-// host the tensor-map encoder fetched from the driver through the runtime
-// (so the libraries need no -lcuda) and the SM count.
+// Hopper (sm_90a) primitives shared by the wgmma/TMA kernels (K1 and K4 in
+// flash_fwd.cu, K2 and K3 in flash_bwd.cu, K5 and K6 in gmm.cu), as inline
+// PTX: mbarriers, TMA tensor loads, the shared-memory matrix descriptor for
+// the 128-byte swizzle, wgmma (fence, commit, wait, m64nNk16 bf16 -> f32
+// with A in shared memory or in registers), named barriers, setmaxnreg, and
+// on the host the tensor-map encoder fetched from the driver through the
+// runtime (so the libraries need no -lcuda) and the SM count.
 //
 // Layouts. Every tile in shared memory is a stack of boxes whose rows are
 // 128 bytes (64 bf16) wide, written by TMA with CU_TENSOR_MAP_SWIZZLE_128B
@@ -390,6 +390,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d), "n"(kTransB));
+}
+
+// Work item i of the persistent attention kernels (K1, K2, K4), n_qb q
+// blocks x bh_count (batch, head) pairs: the latest q blocks, which have
+// the most causal work, first.
+__device__ __forceinline__ void latest_q_block_first(int i, int n_qb,
+                                                     int bh_count, int& qb,
+                                                     int& bh) {
+  qb = n_qb - 1 - i / bh_count;
+  bh = i % bh_count;
 }
 
 // 2^x by the special-function unit alone (ex2.approx.ftz: relative error

@@ -49,15 +49,37 @@ _ROUND4 = ("__uint_as_float((__float_as_uint(%s) + 0x40000u) & "
 
 FLASH_FAULTS = {
     "sound": [],
-    # K2 keeps the keys past the diagonal
+    # faults in K2's wgmma body (flash_bwd_dq_wgmma_kernel):
+    # the consumers never flip their K / V barriers' phase bit: from a
+    # stage's second use a wait passes on its previous phase, before the
+    # stage is refilled (or deadlocks, which the watchdog traps)
+    "k2_phase_bit_not_flipped": [
+        ("        mbar_wait(&full[st], (it / DQ_STAGES) & 1);",
+         "        mbar_wait(&full[st], 0);")],
+    # the consumers hand a K / V stage back as soon as it is full, before
+    # any of the products that read it have been waited for
+    "k2_stage_released_before_wgmma_wait": [
+        ("        mbar_wait(&full[st], (it / DQ_STAGES) & 1);\n",
+         "        mbar_wait(&full[st], (it / DQ_STAGES) & 1);\n"
+         "        if (tid == 0) mbar_arrive(&empty[st]);\n"),
+        ("        if (tid == 0) mbar_arrive(&empty[st]);  // K, V of the "
+         "stage, read\n", "")],
+    # K2 keeps the keys past the diagonal (its tile loop still stops at the
+    # diagonal tile)
     "k2_causal_mask_dropped": [
-        ("if (key >= S || (p.causal && key > row)) pv = 0.f;",
+        ("if (key >= S || (p.causal && key > qrow)) pv = 0.f;",
          "if (key >= S) pv = 0.f;")],
+    # the last q head of each GQA group is dropped: its dq is never written
+    "k2_gqa_head_skipped": [
+        ("      float* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;\n",
+         "      if (group > 1 && h % group == group - 1) continue;\n"
+         "      float* dqg = p.dq + b * p.dq_sb + h * p.dq_sh;\n")],
     # K2's dS rounded to 4 mantissa bits before dS K
     "k2_ds_4_mantissa_bits": [
-        ("        s[j][e] = pv * (dp[j][e] - dlt[i]) * p.scale;",
-         "        s[j][e] = " + _ROUND4 % "(pv * (dp[j][e] - dlt[i]) * "
-         "p.scale)" + ";")],
+        ("              dps[4 * jj + e] = pv * (dps[4 * jj + e] - dlt[r]) * "
+         "p.scale;",
+         "              dps[4 * jj + e] = "
+         + _ROUND4 % "(pv * (dps[4 * jj + e] - dlt[r]) * p.scale)" + ";")],
     # faults in K3's wgmma body (flash_bwd_dkv_wgmma_kernel):
     # the consumer never flips its full barriers' phase bit: from a stage's
     # second use a wait passes on its previous phase, before the stage is
@@ -160,35 +182,37 @@ def fwd_readings():
 
 
 # faults in K4, the ring hop's forward (flash_fwd.cu's
-# flash_block_fwd_bf16_kernel, and the kBlock variant of the f32 kernel,
-# whose edited lines K1's f32 variant shares but is not read here)
+# flash_fwd_wgmma_kernel<D, true>, whose body K1 shares, and the kBlock
+# variant of the f32 kernel, whose edited lines K1's f32 variant shares;
+# K1 is not read here)
 BLOCK_FWD_FAULTS = {
     "sound": [],
     # m written in the loop's log2 units (acc / l still looks right)
     "k4_m_in_log2_units": [
-        ("p.lse[base + row] = m_r[i] * kLn2;",
-         "p.lse[base + row] = m_r[i];")],
+        ("p.lse[base + row_a] = m_run[0] * kLn2;",
+         "p.lse[base + row_a] = m_run[0];"),
+        ("p.lse[base + row_b] = m_run[1] * kLn2;",
+         "p.lse[base + row_b] = m_run[1];")],
     # the diagonal hop lets keys past the diagonal count (its tile loop
     # still stops at the diagonal tile)
     "k4_diagonal_mask_dropped": [
-        ("if (key >= S || (p.causal && key > row)) x = -INFINITY;",
-         "if (key >= S) x = -INFINITY;")],
+        ("if (key >= p.S || (p.causal && key > row)) x = -INFINITY;",
+         "if (key >= p.S) x = -INFINITY;")],
     # acc written normalized by l
     "k4_acc_normalized": [
-        ("make_float2(acc[n][0], acc[n][1]);",
-         "make_float2(acc[n][0] / l_r[0], acc[n][1] / l_r[0]);"),
-        ("make_float2(acc[n][2], acc[n][3]);",
-         "make_float2(acc[n][2] / l_r[1], acc[n][3] / l_r[1]);")],
-    # a full hop skips its last key tile
+        ("make_float2(o[4 * jj], o[4 * jj + 1]);",
+         "make_float2(o[4 * jj] / l_run[0], o[4 * jj + 1] / l_run[0]);"),
+        ("make_float2(o[4 * jj + 2], o[4 * jj + 3]);",
+         "make_float2(o[4 * jj + 2] / l_run[1], o[4 * jj + 3] / l_run[1]);")],
+    # a full hop skips its last key tile (producer and consumers alike)
     "k4_full_hop_last_tile_skipped": [
-        ("  if (p.causal) n_tiles = min(n_tiles, (q0 + BM + BN - 1) / BN);\n",
-         "  if (p.causal) n_tiles = min(n_tiles, (q0 + BM + BN - 1) / BN);\n"
-         "  else n_tiles -= 1;\n")],
-    # the probabilities rounded to 4 mantissa bits (in P.V and in l)
+        ("                    : all_tiles;",
+         "                    : all_tiles - 1;")],
+    # the probabilities rounded to 4 mantissa bits (in P V and in l)
     "k4_p_4_mantissa_bits": [
-        ("      rs[0] += s[j][0] + s[j][1];",
-         "      for (int e = 0; e < 4; ++e) s[j][e] = "
-         + _ROUND4 % "s[j][e]" + ";\n      rs[0] += s[j][0] + s[j][1];")],
+        ("            s[4 * jj + e] = fast_exp2(s[4 * jj + e] - mu[e / 2]);",
+         "            s[4 * jj + e] = "
+         + _ROUND4 % "fast_exp2(s[4 * jj + e] - mu[e / 2])" + ";")],
     # the f32 (FMA) variant's faults, read at the f32 cases: acc written
     # normalized by l, the diagonal mask dropped within the last key tile,
     # and m written in log2 units
@@ -467,7 +491,8 @@ def gmm_readings():
 
 def flash_readings():
     """Each phase-4 shape's readings of K2 and K3 against the plain
-    version, on phase 4's inputs."""
+    version, on phase 4's inputs, K2's output poisoned beforehand (rows it
+    leaves unwritten read NaN). NaN reads inf."""
     A = importlib.import_module("metaflow_tpu_torch.ops.attention")
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
@@ -479,20 +504,23 @@ def flash_readings():
         out, lse = A._flash_forward_cuda(q, k, v, causal, scale)
         delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
             B * H, S).contiguous()
-        got = (A._flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal),
-               *A._flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal))
-        want = A._flash_block_bwd_plain(q, k, v, g, lse, delta, scale, causal)
+        args = (q, k, v, g, lse, delta, scale, causal)
+        got = (_poisoned(lambda: A._flash_bwd_dq_cuda(*args), q.shape,
+                         torch.float32), *A._flash_bwd_dkv_cuda(*args))
+        want = A._flash_block_bwd_plain(*args)
         torch.cuda.synchronize()
         row = {"shape": [B, S, H, KV, D], "dtype": str(dt).split(".")[-1],
                "causal": causal}
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
-            if dt == torch.float32:
+            if not torch.isfinite(a).all():
+                row[name] = float("inf")
+            elif dt == torch.float32:
                 row[name] = ((a - b).abs() / (1e-5 + 1e-3 * b.abs())).max(
                 ).item()
             else:
                 row[name] = A.flash_out_error(a, b)
         rows.append(row)
-        del q, k, v, g, out, lse, delta, got, want
+        del q, k, v, g, out, lse, delta, args, got, want
     return rows
 
 

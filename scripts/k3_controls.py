@@ -85,7 +85,7 @@ def main():
             "flash_bwd", roots[name] / "csrc", roots[name] / "build")[1]))
 
         def control():
-            with C.baseline_flash_bwd(_build, lib):
+            with C.baseline_source(_build, "flash_bwd", lib):
                 return sound()
 
         sound_ms, control_ms, turns = C.in_turns(sound, control, 20)

@@ -3,17 +3,19 @@ chip_smoke.py's: the flash forward (K1) and backward (K2, K3) at ragged
 and long sequence lengths, strided inputs and output gradients, head dim
 64, GQA, the dispatcher's and autograd's routes to the kernels, and one
 trainer step through them; K3 over GQA groups of 1, 2 and 4 and on ring
-shard views; the grouped matmul K5 (both weight layouts, both producers,
-a persistent grid over more tiles than SMs, a single tile) and K6 over
-empty and one-row groups, row_valid padding, D and F tails and both
-dtypes, an empty group, a single tile, a group of many waves and skewed
-routing on both producers, its bf16 output, its autograd route, a
-Mixtral trainer step through K5/K6 against plain gmm, and that step with
-no host synchronisation; the
-ring hop's forward K4 on shard views (diagonal and full, ragged lengths,
-head dim 64, GQA), ring attention on LocalRing(n) against the flash path
-through autograd, and a trainer step through the ring. Needs an NVIDIA GPU
-(tests/conftest.py imports jax, so skip it where jax is missing):
+shard views; K2 over GQA groups of 1, 2 and 4 on more work items than
+SMs and on ragged ring shard views; the grouped matmul K5 (both weight
+layouts, both producers, a persistent grid over more tiles than SMs, a
+single tile) and K6 over empty and one-row groups, row_valid padding, D
+and F tails and both dtypes, an empty group, a single tile, a group of
+many waves and skewed routing on both producers, its bf16 output, its
+autograd route, a Mixtral trainer step through K5/K6 against plain gmm,
+and that step with no host synchronisation; the ring hop's forward K4 on
+shard views (diagonal and full, ragged lengths, head dim 64, GQA, more
+work items than SMs), ring attention on LocalRing(n) against the flash
+path through autograd, and a trainer step through the ring. Needs an
+NVIDIA GPU (tests/conftest.py imports jax, so skip it where jax is
+missing):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -188,6 +190,35 @@ def test_dkv_kernel_reads_ring_shard_views(cuda, diag, D):
     _check_bwd(q, k, v, g, diag)
 
 
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_kernel_over_more_items_than_sms(cuda, group, D, causal):
+    """K2 (with K3) at GQA groups of 1, 2 and 4 over a ragged length with
+    more work items (128 q rows of a q head) than the card has SMs, so each
+    persistent block walks several items and its K / V ring runs on across
+    them."""
+    B, KV, S = 5, 4, 1000  # 8 q blocks x 20 group heads: 160 items or more
+    q, g = (torch.randn(B, S, KV * group, D, generator=cuda,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, S, KV, D, generator=cuda, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    _check_bwd(q, k, v, g, causal)
+
+
+@pytest.mark.parametrize("S", [200, 333])
+@pytest.mark.parametrize("diag", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_dq_kernel_reads_ragged_ring_shard_views(cuda, S, diag, D):
+    """K2 and K3 on ring shard views whose length is no multiple of a key
+    tile or of a work item's rows: q, dO the second shard of a two-shard
+    sequence, k, v the same shard (diagonal, causal) or the first (full)."""
+    q, k, v = _shard_views(cuda, 2, S, 8, 2, D, torch.bfloat16, diag)
+    g = torch.randn(2, 2 * S, 8, D, generator=cuda, device="cuda").to(
+        torch.bfloat16)[:, S:]
+    _check_bwd(q, k, v, g, diag)
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_autograd_runs_the_backward_kernels(cuda, dtype):
     """attention(impl='auto') on tensors that require grad launches K1 and,
@@ -260,13 +291,15 @@ def _shard_views(gen, B, S, H, KV, D, dt, diag):
     return q[:, S:], k[:, kv], v[:, kv]
 
 
-@pytest.mark.parametrize("S", [1, 50, 64, 256, 384])
+@pytest.mark.parametrize("S", [1, 50, 64, 256, 384, 333, 1000, 2100])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("diag", [True, False])
 def test_block_fwd_kernel_matches_plain(cuda, S, dtype, D, diag):
     """K4 on strided shard views against its plain version: acc / l, m
-    and lse, as chip_smoke.py's phase 8a holds them."""
+    and lse, as chip_smoke.py's phase 8a holds them. Ragged lengths mask
+    the last key tile past S; at S 2100 the bf16 kernel has more work
+    items (17 q blocks x 2 batches x 4 heads) than the card has SMs."""
     dt = getattr(torch, dtype)
     q, k, v = _shard_views(cuda, 2, S, 4, 2, D, dt, diag)
     assert not q.is_contiguous()
