@@ -85,6 +85,24 @@ Phase 8  runs ring attention over the sequence axis on a LocalRing (n
          model's, the loss falling from step 1 to step 4; (e) the
          Llama-3-8B forward on tokens [1, 8192] through the ring (320 K4
          launches) against the K1 forward.
+Phase 9  trains as the JAX package's benchmark does on an accelerator, on
+         memory_efficient_optimizer (factored Adafactor): (a) bench_1b
+         uncut in bf16 on tokens [32, 2049], 5 steps under each of
+         remat_policy None, "dots" and "attn_out" (a policy out of memory
+         at 32 rows is recorded and run at 16), each step launching K1 32
+         and K2, K3 16 times, the loss falling; (b) bench_1b fed by
+         ResumableTokenBatches through prefetch onto the card, an async
+         checkpoint saved after step 2 through the port's local datastore,
+         a new trainer restored from it reruns steps 3-4 from the saved
+         data stamp: its losses and weights within 1e-3 of the
+         uninterrupted run's (bit identity and save()'s blocking time
+         printed); (c) Llama-3-8B uncut (32 layers, 8.03 B parameters) in
+         bf16 on tokens [4, 2049], 5 steps, each launching K1 64 and K2, K3
+         32 times, step 1 profiled by operator (select_backward's share),
+         every K2/K3 launch of step 2 held against its plain version, the
+         loss falling; peak memory split into parameters, gradients,
+         optimizer state and the rest. Each prints step ms, tokens/s and
+         MFU.
 
 Every run drives every phase, and every phase asserts; the script exits
 non-zero on the first failure, when no CUDA device is present, or when the
@@ -101,6 +119,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1828,6 +1847,361 @@ def phase8e_prefill_ring(torch, llama, A, R, L):
     return launches, result
 
 
+def _train_steps(torch, L, step, state, batches, steps, special=None):
+    """`steps` trainer steps on the batches `batches(i)` gives; special
+    maps a step index to a wrapper of that step's call (a profile, a
+    check). Returns (state, one record a step, the wrappers' results)."""
+    records, extra = [], {}
+    for i in range(steps):
+        before = dict(L.LAUNCHES)
+        batch = batches(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if special and i in special:
+            (state, m), extra[i] = special[i](lambda: step(state, batch))
+        else:
+            state, m = step(state, batch)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        records.append({"step": i, "ms": (time.perf_counter() - t) * 1e3,
+                        "loss": loss, "grad_norm": norm,
+                        "launches": {n: L.LAUNCHES[n] - before[n]
+                                     for n in L.LAUNCHES}})
+    return state, records, extra
+
+
+def _check_training(records, n_layers, label, one_batch=True):
+    """Every step launched K1 2L and K2, K3 L times and nothing else; the
+    losses are finite and, on one fixed batch, hold at step 1 (lr 0 on the
+    first update) and fall to the last step."""
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers, "flash_block_fwd": 0,
+            "gmm_fwd": 0, "gmm_dw": 0}
+    for r in records:
+        if r["launches"] != want:
+            raise AssertionError("%s: step %d launched %s, expected %s"
+                                 % (label, r["step"], r["launches"], want))
+    losses = [r["loss"] for r in records]
+    if not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError("%s: non-finite losses %s" % (label, losses))
+    if one_batch and (abs(losses[0] - losses[1]) > 1e-5 * abs(losses[0])
+                      or not losses[-1] < losses[1]):
+        raise AssertionError("%s: the loss must hold at step 1 (lr 0 on the "
+                             "first update) and fall to the last step: %s"
+                             % (label, losses))
+
+
+def _rates(torch, training, n_params, cfg, B, S, step_ms):
+    tokens_per_s = B * S / step_ms * 1e3
+    fpt = training.flops_per_token_dense(n_params, cfg.n_layers, cfg.dim, S)
+    peak = training.peak_tflops(torch.cuda.get_device_name(0))
+    if peak is None:
+        raise AssertionError("no peak rate for %s"
+                             % torch.cuda.get_device_name(0))
+    return {"step_ms": step_ms, "tokens_per_s": tokens_per_s,
+            "flops_per_token": fpt, "peak_tflops": peak,
+            "mfu": tokens_per_s * fpt / (peak * 1e12)}
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bench_1b_factored(torch, llama, L, training, policy, B, seed=9,
+                       steps=5):
+    """bench_1b uncut in bf16 under `policy` on
+    memory_efficient_optimizer(warmup_steps=1, total_steps=10): `steps`
+    steps on one fixed batch of tokens [B, 2049]."""
+    cfg = llama.LlamaConfig.bench_1b(remat_policy=policy)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, 2049),
+                                     generator=gen, device="cuda")}
+    state, step = training.make_trainer(
+        cfg, llama, optimizer=training.memory_efficient_optimizer(
+            warmup_steps=1, total_steps=10), params=params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_launch_counts()
+    try:
+        _, records, _ = _train_steps(torch, L, step, state,
+                                     lambda i: batch, steps)
+    finally:
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del state, step, batch
+        _free(torch)
+    result = {"remat_policy": policy, "tokens": [B, 2049],
+              "params": n_params, "peak_mem_gb": peak_gb,
+              "launches": dict(L.LAUNCHES), "steps": records}
+    result.update(_rates(torch, training, n_params, cfg, B, 2048,
+                         statistics.median(r["ms"] for r in records[1:])))
+    _check_training(records, cfg.n_layers, "phase 9a (%s)" % policy)
+    return result
+
+
+def phase9a_factored_policies(torch, llama, L, training):
+    """bench.py's accelerator setup: bench_1b uncut, bf16, on
+    memory_efficient_optimizer at tokens [32, 2049], 5 steps under each of
+    remat_policy None, "dots" and "attn_out". A policy that runs out of
+    memory at 32 rows is recorded with the peak it reached and run at 16.
+    Returns {policy: result}."""
+    out = {}
+    for policy in (None, "dots", "attn_out"):
+        oom = None
+        try:
+            out[policy] = _bench_1b_factored(torch, llama, L, training,
+                                             policy, 32)
+        except torch.cuda.OutOfMemoryError as ex:
+            oom = {"tokens": [32, 2049],
+                   "peak_mem_gb_reached":
+                       torch.cuda.max_memory_allocated() / 1e9,
+                   "error": str(ex).splitlines()[0]}
+        if oom is not None:  # the traceback's frames are gone by now
+            _free(torch)
+            log("phase 9a: remat_policy=%r out of memory at [32, 2049]: %s"
+                % (policy, json.dumps(oom)))
+            out[policy] = _bench_1b_factored(torch, llama, L, training,
+                                             policy, 16)
+            out[policy]["out_of_memory_at_32"] = oom
+        r = out[policy]
+        log(json.dumps(dict(r, phase="9a")))
+        log("phase 9a: remat_policy=%r [%d, 2049]: %.1f ms a step, %.0f "
+            "tokens/s, MFU %.4f, peak %.2f GB" % (
+                policy, r["tokens"][0], r["step_ms"], r["tokens_per_s"],
+                r["mfu"], r["peak_mem_gb"]))
+    return out
+
+
+def phase9b_resume(torch, llama, L, training, tmp_root):
+    """Resume from an async checkpoint: bench_1b in bf16 on the factored
+    optimizer, fed by ResumableTokenBatches through prefetch onto the card
+    from a seeded random token array, checkpoints written through the
+    port's local datastore under `tmp_root`. Steps 1-4 with a save after
+    step 2; then a new trainer built with checkpoint= from other initial
+    weights reruns steps 3-4 from the restored data stamp. The resumed
+    losses and weights must agree within 1e-3 relative; bit identity and
+    how long save() blocked are printed."""
+    import numpy as np
+
+    from metaflow_tpu_torch.datastore import LocalFlowDataStore
+    from metaflow_tpu_torch.training import data as data_mod
+
+    cfg = llama.LlamaConfig.bench_1b()
+    B = 8
+    tokens = np.random.default_rng(10).integers(
+        0, cfg.vocab_size, 12 * B * 2049).astype(np.int32)
+
+    def trainer(seed, checkpoint=None):
+        return training.make_trainer(
+            cfg, llama, optimizer=training.memory_efficient_optimizer(
+                warmup_steps=1, total_steps=10),
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            checkpoint=checkpoint)
+
+    def stream(stamp=None):
+        ds = data_mod.ResumableTokenBatches(tokens, B, 2048, seed=11)
+        if stamp is not None:
+            ds.restore(stamp)
+        return data_mod.prefetch(iter(ds), depth=2, device="cuda")
+
+    mgr = training.AsyncCheckpointManager(
+        LocalFlowDataStore("ChipSmoke", tmp_root), "bench_1b", keep=2)
+    state, step = trainer(12)
+    batches = stream()
+    got = []
+    save = {}
+
+    def take(i):
+        got.append(next(batches))
+        return got[-1]
+
+    def save_after(run):
+        out = run()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(out[0], out[0]["step"], extra=got[-1][data_mod.STATE_KEY])
+        save["blocked_ms"] = (time.perf_counter() - t) * 1e3
+        return out, None
+
+    L.reset_launch_counts()
+    state, records, _ = _train_steps(torch, L, step, state, take, 4,
+                                     special={1: save_after})
+    batches.close()
+    t = time.perf_counter()
+    mgr.wait()
+    save["background_ms_after_steps"] = (time.perf_counter() - t) * 1e3
+    want = {path: p.detach().clone()
+            for path, p in training.train_step.leaves(state["params"])}
+    del state, step
+    _free(torch)
+
+    t = time.perf_counter()
+    state, step = trainer(13, checkpoint=mgr)
+    restore_s = time.perf_counter() - t
+    ck = mgr.last_restored
+    if ck is None or ck.step != 2 or state["step"] != 2 or \
+            state["opt_state"]["count"] != 2:
+        raise AssertionError("phase 9b: restored %s, state step %s"
+                             % (ck and ck.step, state["step"]))
+    batches = stream(ck.extra)
+    state, resumed, _ = _train_steps(torch, L, step, state,
+                                     lambda i: next(batches), 2)
+    batches.close()
+    worst, identical = 0.0, True
+    for path, p in training.train_step.leaves(state["params"]):
+        w = want[path]
+        identical &= bool(torch.equal(p, w))
+        worst = max(worst, ((p.float() - w.float()).abs().max()
+                            / w.float().abs().max()).item())
+    losses = [r["loss"] for r in records[2:]]
+    again = [r["loss"] for r in resumed]
+    result = {"phase": "9b", "tokens": [B, 2049], "steps": records,
+              "resumed_steps": resumed, "save_step": 2,
+              "save_blocked_ms": save["blocked_ms"],
+              # the resumed run's steps: no write in flight
+              "step_ms": statistics.median(r["ms"] for r in resumed),
+              "step_ms_while_writing": [r["ms"] for r in records[2:]],
+              "write_left_after_step_4_ms":
+                  save["background_ms_after_steps"],
+              "restore_s": restore_s, "manifests": mgr.steps(),
+              "losses": losses, "resumed_losses": again,
+              "losses_bit_identical": losses == again,
+              "params_bit_identical": identical,
+              "params_max_rel_diff": worst}
+    log(json.dumps(result))
+    log("phase 9b: save blocked %.1f ms against a %.1f ms step (steps 3-4 "
+        "%s ms while the write ran, %.1f ms of it left after them); resumed "
+        "losses %s vs %s (bit identical: %s), parameters bit identical: %s"
+        % (save["blocked_ms"], result["step_ms"],
+           [round(r["ms"], 1) for r in records[2:]],
+           save["background_ms_after_steps"], again, losses,
+           losses == again, identical))
+    _check_training(records + resumed, cfg.n_layers, "phase 9b",
+                    one_batch=False)
+    if any(abs(a - b) > 1e-3 * abs(b) for a, b in zip(again, losses)) or \
+            worst > 1e-3:
+        raise AssertionError("phase 9b: the resumed run is off the "
+                             "uninterrupted one: %s" % json.dumps(result))
+    del state, step, want
+    _free(torch)
+    return result
+
+
+def profiled_ops(torch, run):
+    """run() under torch.profiler; returns (run's result, the step's
+    device time and its split by operator: each op's device time with the
+    kernels of the ops it calls, the top ones, and select_backward's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        result = run()
+        torch.cuda.synchronize()
+    rows, device_ms = [], 0.0
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0)) / 1e3
+        self_ms = getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            device_ms += self_ms  # kernels: each counted once
+        elif total:
+            rows.append([ev.key[:60], total, ev.count])
+    rows.sort(key=lambda r: -r[1])
+    by_op = {k: ms for k, ms, _ in rows}
+    return result, {
+        "device_ms": device_ms,
+        "select_backward_ms": by_op.get("aten::select_backward", 0.0),
+        # the node's whole backward: select_backward's full-size zeros and
+        # the engine's sum of the layers' full-size gradients of a leaf
+        "select_backward_node_ms": by_op.get(
+            "autograd::engine::evaluate_function: SelectBackward0", 0.0),
+        "top_ops_ms": rows[:25]}
+
+
+def _bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase9c_llama3_8b(torch, llama, A, L, training):
+    """Llama-3-8B uncut (32 layers, 8.03 B parameters) in bf16 on
+    memory_efficient_optimizer(warmup_steps=1, total_steps=10), 5 steps on
+    one fixed batch of tokens [4, 2049]: step 1 profiled by operator,
+    every K2/K3 launch of step 2 held against its plain version. Returns
+    its result."""
+    leaves = training.train_step.leaves
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    B, S = 4, 2048
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device="cuda")}
+    opt = training.memory_efficient_optimizer(warmup_steps=1,
+                                              total_steps=10)
+    state, step = training.make_trainer(cfg, llama, optimizer=opt,
+                                        params=params)
+    del params
+    torch.cuda.synchronize()
+    memory = {
+        "params_gb": _bytes(p for _, p in leaves(state["params"])) / 1e9,
+        "grads_gb": _bytes(p for _, p in leaves(state["params"])) / 1e9,
+        "optimizer_state_gb": _bytes(
+            t for name in ("v_row", "v_col", "v", "mu")
+            for _, t in leaves(state["opt_state"][name])) / 1e9,
+        "second_moment_mb": _bytes(
+            t for name in ("v_row", "v_col", "v")
+            for _, t in leaves(state["opt_state"][name])) / 1e6}
+    log("phase 9c: llama3_8b bf16 params %.3fB, depth %d of %d, init %.1fs"
+        % (n_params / 1e9, cfg.n_layers, cfg.n_layers,
+           time.perf_counter() - t0))
+    torch.cuda.reset_peak_memory_stats()
+    L.reset_launch_counts()
+    state, records, extra = _train_steps(
+        torch, L, step, state, lambda i: batch, 5,
+        special={1: lambda run: profiled_ops(torch, run),
+                 2: lambda run: checked_backward(A, run)})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memory["peak_gb"] = peak_gb
+    memory["rest_gb"] = peak_gb - memory["params_gb"] - \
+        memory["grads_gb"] - memory["optimizer_state_gb"]
+    ratios = extra[2]
+    result = {"phase": "9c", "tokens": [B, S + 1], "params": n_params,
+              "layers": cfg.n_layers, "memory": memory,
+              "launches": dict(L.LAUNCHES), "steps": records,
+              "profile_step_1": extra[1],
+              "in_model_row_err_over_limit": {
+                  n: max(r) for n, r in ratios.items()},
+              "in_model_checks": {n: len(r) for n, r in ratios.items()}}
+    result.update(_rates(torch, training, n_params, cfg, B, S,
+                         statistics.median(r["ms"] for r in records[3:])))
+    log(json.dumps(result))
+    prof = extra[1]
+    log("phase 9c: %.1f ms a step, %.0f tokens/s, MFU %.4f, peak %.2f GB "
+        "(params %.2f, grads %.2f, optimizer state %.2f, rest %.2f); "
+        "step 1's device time %.1f ms, select_backward %.1f ms (%.1f ms "
+        "with the gradient sums of its node)" % (
+            result["step_ms"], result["tokens_per_s"], result["mfu"],
+            peak_gb, memory["params_gb"], memory["grads_gb"],
+            memory["optimizer_state_gb"], memory["rest_gb"],
+            prof["device_ms"], prof["select_backward_ms"],
+            prof["select_backward_node_ms"]))
+    _check_training(records, cfg.n_layers, "phase 9c")
+    if any(len(r) != cfg.n_layers or max(r) > 1.0 for r in ratios.values()):
+        raise AssertionError("K2/K3 off their plain version inside the "
+                             "8B model: %s" % ratios)
+    if abs(n_params - 8.03e9) > 0.01e9:
+        raise AssertionError("phase 9c: %d parameters" % n_params)
+    del state, step, batch
+    _free(torch)
+    return result
+
+
 def main(argv=None):
     import torch
 
@@ -1945,9 +2319,18 @@ def main(argv=None):
     log("phase 8d done at %.1fs" % (time.perf_counter() - start))
     prefill_launches, _ = phase8e_prefill_ring(torch, llama, A, R, L)
     log("phase 8e done at %.1fs" % (time.perf_counter() - start))
+    _free(torch)
+    factored = phase9a_factored_policies(torch, llama, L, training)
+    log("phase 9a done at %.1fs" % (time.perf_counter() - start))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        phase9b_resume(torch, llama, L, training, tmp)
+    log("phase 9b done at %.1fs" % (time.perf_counter() - start))
+    flagship = phase9c_llama3_8b(torch, llama, A, L, training)
+    log("phase 9c done at %.1fs" % (time.perf_counter() - start))
 
     # one line per kernel: the flash kernels' launches in the bench_1b run
-    # (phase 5b) and times at its training shape (phase 4), K1 also at the
+    # (phase 5b; a step's in phases 9a and 9c beside them) and times at
+    # its training shape (phase 4), K1 also at the
     # inference shape (phases 1, 2), K2 and K3 also their launches in the
     # 8k ring run (phase 8d); K4's launches in the 8k ring run (phase 8d)
     # and times at its diagonal hop (phase 8a), with the full hop beside
@@ -2033,6 +2416,11 @@ def main(argv=None):
             ported.append(line)
             continue
         rec = records[k["name"]]
+        line["launches_bench_1b_factored_step"] = {
+            str(policy): r["steps"][-1]["launches"][k["name"]]
+            for policy, r in factored.items()}
+        line["launches_llama3_8b_step"] = \
+            flagship["steps"][-1]["launches"][k["name"]]
         line.update(launches=train_launches[k["name"]],
                     max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                     plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

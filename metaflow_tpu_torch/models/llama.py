@@ -4,15 +4,21 @@ Parameters are a plain dict of tensors with the JAX package's names and
 layout: per-layer weights stacked on a leading [L] axis, projections stored
 [in, out] and applied as `h @ w`. The layer stack is a Python loop over
 that axis; with cfg.remat each layer runs under torch.utils.checkpoint, as
-the JAX package wraps its scanned layer in jax.checkpoint.
+the JAX package wraps its scanned layer in jax.checkpoint, with the
+reference's remat policies.
 """
 
+import functools
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.attention import attention
 from ..ops.matmul import matmul_f32
@@ -36,8 +42,9 @@ class LlamaConfig:
     dtype: str = "bfloat16"
     attention_impl: str = "auto"
     remat: bool = True
-    # None recomputes the whole layer in the backward pass; the JAX
-    # package's "dots" and "attn_out" policies are not ported yet
+    # None recomputes the whole layer in the backward pass; "dots" keeps
+    # the outputs of its products (less recompute, more memory); "attn_out"
+    # keeps the attention's output (REMAT_POLICIES, _remat_layer)
     remat_policy: str = None
     # cross-entropy chunk length (tokens): the [B, chunk, vocab] f32 logits
     # are computed, and recomputed in the backward pass, one chunk at a
@@ -192,8 +199,9 @@ def _sequence_attention(cfg, q, k, v, mesh):
     return ring_attention(q, k, v, mesh, causal=True)
 
 
-def _layer(cfg, cos, sin, x, lp, mesh=None):
-    """One transformer block; x: [B, S, D]."""
+def _attention(cfg, cos, sin, x, lp, mesh=None):
+    """The attention half of a block: its output [B, S, H, Hd] for x:
+    [B, S, D]."""
     B, S, _ = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -203,27 +211,77 @@ def _layer(cfg, cos, sin, x, lp, mesh=None):
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if cfg.attention_impl in ("ring", "ulysses"):
-        attn = _sequence_attention(cfg, q, k, v, mesh)
-    else:
-        attn = attention(q, k, v, causal=True, impl=cfg.attention_impl)
-    x = x + attn.reshape(B, S, H * Hd) @ lp["wo"]
+        return _sequence_attention(cfg, q, k, v, mesh)
+    return attention(q, k, v, causal=True, impl=cfg.attention_impl)
+
+
+def _after_attention(cfg, x, attn, lp):
+    """The rest of a block: the output projection, the residual and the
+    feed-forward half."""
+    B, S, _ = x.shape
+    x = x + attn.reshape(B, S, -1) @ lp["wo"]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     gate = F.silu(h @ lp["w_gate"])
     up = h @ lp["w_up"]
     return x + (gate * up) @ lp["w_down"]
 
 
+def _layer(cfg, cos, sin, x, lp, mesh=None):
+    """One transformer block; x: [B, S, D]."""
+    return _after_attention(cfg, x, _attention(cfg, cos, sin, x, lp, mesh),
+                            lp)
+
+
 def _tokens_on(tokens, device):
     return torch.as_tensor(tokens, device=device).long()
 
 
-def _remat(fn, *args):
+def _remat(fn, *args, **checkpoint_kw):
     """fn(*args), recomputed in the backward pass instead of keeping its
-    intermediates when autograd records (jax.checkpoint with policy None);
-    a plain call when it does not."""
+    intermediates when autograd records (jax.checkpoint with policy None,
+    or the selective policy a context_fn gives); a plain call when it does
+    not."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **checkpoint_kw)
     return fn(*args)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """jax.checkpoint_policies.dots_with_no_batch_dims_saveable: keep the
+    output of every product without batch dims. `h @ w` of a [B, S, D]
+    activation and a [D, N] weight reaches aten.mm; the attention's
+    batched products (bmm) and everything else are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = (None, "dots", "attn_out")
+
+
+def _remat_layer(cfg, cos, sin, x, lp, mesh):
+    """One block under cfg.remat_policy, the JAX package's policies:
+    None keeps only the block's input; "dots" also keeps the outputs of
+    its products without batch dims (q, k, v, the output projection, gate,
+    up and down); "attn_out" also keeps the attention's output, the block
+    split there into two checkpoints. The backward pass recomputes
+    everything else. The attention kernel K1 is no aten op, so every
+    policy runs it again in the backward pass (for the lse its backward
+    needs), as the reference's flash forward runs twice under each of its
+    policies."""
+    policy = cfg.remat_policy
+    if policy is None:
+        return _remat(_layer, cfg, cos, sin, x, lp, mesh)
+    if policy == "dots":
+        return _remat(_layer, cfg, cos, sin, x, lp, mesh,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts,
+                          _save_products))
+    if policy == "attn_out":
+        attn = _remat(_attention, cfg, cos, sin, x, lp, mesh)
+        return _remat(_after_attention, cfg, x, attn, lp)
+    raise ValueError("remat_policy=%r: the policies are %s"
+                     % (policy, REMAT_POLICIES))
 
 
 def hidden_states(params, tokens, cfg, device="cuda", mesh=None):
@@ -233,10 +291,6 @@ def hidden_states(params, tokens, cfg, device="cuda", mesh=None):
     attention_impl='ring'."""
     device = resolve_device(device)
     check_params_device(params, device)
-    if cfg.remat and cfg.remat_policy is not None:
-        raise NotImplementedError(
-            "remat_policy=%r is not ported yet (ROADMAP.md, slice 2b); use "
-            "remat_policy=None" % cfg.remat_policy)
     tokens = _tokens_on(tokens, device)
     dt = param_dtype(cfg)
     x = params["embed"][tokens].to(dt)
@@ -246,7 +300,7 @@ def hidden_states(params, tokens, cfg, device="cuda", mesh=None):
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if cfg.remat:
-            x = _remat(_layer, cfg, cos, sin, x, lp, mesh)
+            x = _remat_layer(cfg, cos, sin, x, lp, mesh)
         else:
             x = _layer(cfg, cos, sin, x, lp, mesh)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -13,6 +13,7 @@ import torch  # noqa: E402
 
 from metaflow_tpu.models import llama as ref_llama  # noqa: E402
 from metaflow_tpu_torch.models import llama as port_llama  # noqa: E402
+from metaflow_tpu_torch.training import train_step as port_ts  # noqa: E402
 
 # one intra-op thread: the tests share the CPU with the other pytest
 # workers, on which torch's pool of a thread per core would spin
@@ -116,8 +117,10 @@ def test_loss_matches_reference(weights, case):
 
 def test_remat_changes_memory_not_values(weights):
     """remat=False gives the same loss and grads as the default remat=True;
-    the JAX package's named remat policies raise until they are ported."""
-    _, np_params = weights
+    the JAX package's named remat policies "dots" and "attn_out" give remat
+    None's loss and grads bit for bit (they only keep more of the forward),
+    and "dots" matches the JAX loss_fn's grads under that policy."""
+    cfg, np_params = weights
     chunk, batch = _batch("chunked")
     loss, params = _port_loss(np_params, chunk, batch)
     loss_nr, params_nr = _port_loss(np_params, chunk, batch, remat=False)
@@ -125,9 +128,23 @@ def test_remat_changes_memory_not_values(weights):
     for name, w in params["layers"].items():
         torch.testing.assert_close(w.grad, params_nr["layers"][name].grad,
                                    atol=1e-7, rtol=1e-6)
+    runs = {}
     for policy in ("dots", "attn_out"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_loss(np_params, chunk, batch, remat_policy=policy)
+        runs[policy] = _port_loss(np_params, chunk, batch,
+                                  remat_policy=policy)
+        assert runs[policy][0].item() == loss.item(), policy
+        got = dict(port_ts.leaves(runs[policy][1]))
+        for path, w in port_ts.leaves(params):
+            assert torch.equal(got[path].grad, w.grad), (policy, path)
+    rcfg = dataclasses.replace(cfg, loss_chunk=chunk, remat_policy="dots")
+    ref, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: ref_llama.loss_fn(p, b, rcfg)))(np_params, batch)
+    loss_p, params_p = runs["dots"]
+    np.testing.assert_allclose(loss_p.item(), float(ref), rtol=1e-5)
+    for name, w in params_p["layers"].items():
+        np.testing.assert_allclose(w.grad.numpy(),
+                                   np.asarray(grads["layers"][name]),
+                                   atol=1e-5, rtol=1e-3, err_msg=name)
 
 
 def test_init_params_shapes_match_reference():
