@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--baseline CHECKOUT]
+    python3 chip_smoke.py [--baseline CHECKOUT] [--phases 0,3,10]
+
+--phases: run phase 0 (always) and the listed phases only (default: every
+phase). A phase that needs another's output builds its own (phase 3 the
+8B weights); the kernel report then carries each kernel with its numbers
+null, since they come from phases 1, 2 and 4-9.
 
 --baseline CHECKOUT: a directory holding an earlier checkout's
 metaflow_tpu_torch/ops/csrc (e.g. `git archive <commit>
@@ -104,10 +109,37 @@ Phase 9  trains as the JAX package's benchmark does on an accelerator, on
          optimizer state and the rest. Each prints step ms, tokens/s and
          MFU.
 
-Every run drives every phase, and every phase asserts; the script exits
-non-zero on the first failure, when no CUDA device is present, or when the
-port's package is missing. Its last lines are the kernel report and
-{"ok": true, "device": {...}}.
+Phase 10 serves through the whole stack users run, built by the port's
+         entry point cmd/serve.py serve(): HTTP -> ServingServer ->
+         Scheduler -> PagedEngine with the paged prefix index: (a) a narrow float32 Llama (dim 512, 4 layers, GQA 8/2,
+         vocab 32000, pages of 16 tokens) must give, token for token,
+         generate()'s greedy tokens, the same with spec_k 0 and 3, with
+         the chunked and the dense attention path, with prefix hits as
+         cold, and SlotEngine's sampled tokens (a position whose f32 top-2
+         logit gap is under 1e-5 is printed and let pass); (b) Llama-3-8B
+         uncut in bf16 (8.03 B parameters) on PagedEngine(max_slots=16,
+         max_seq_len=4096, page_tokens=16, prefill_chunk=64) with a
+         2048 MB PagedPrefixIndex serves 32 requests posted at once from
+         32 client threads (prompts of 17-2000 tokens, 16 of them after
+         one warmed 1024-token system prompt, 64 new tokens each, half
+         greedy, half sampled, 8 streamed), once with spec_k 0 and once
+         with spec_k 3: every response 200 and "length", at least 15
+         zero-copy prefix hits with no KV bytes copied, no page leaked
+         after the drain; prints TTFT, decode tokens/s, requests/s, page
+         occupancy, the spec accept rate and peak memory, with phase 3b's
+         SlotEngine figures beside them; a third pass of spec_k 0's
+         traffic profiles decode steps 40-49 (device-busy time against
+         wall time, device operations and launch calls per step, the loop
+         thread's CPU share) and cancels the rest. The engine's prefill and decode
+         launch no kernel (the JAX engine reaches no Pallas kernel
+         either); their launch counts are printed.
+
+Every phase asserts; the script exits non-zero on the first failure, when
+no CUDA device is present, or when the port's package is missing. Its last
+lines are the kernel report, one SUMMARY line per phase (its pass result
+and headline numbers, at most 200 bytes), the card and
+{"ok": true, "device": {...}}; on a failure the SUMMARY lines so far and
+the failing phase are printed before the traceback.
 """
 
 import contextlib
@@ -129,8 +161,29 @@ H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
 
 
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
+ROWS = {}  # the last JSON row each phase (or phase and variant) logged
+# the numbers a summary line shows first
+HEADLINES = ("token_identical", "ttft_p50_s", "ttft_p99_s",
+             "server_ttft_p50_ms", "server_ttft_p99_ms",
+             "device_busy_share", "device_ops_per_step",
+             "launch_calls_per_step", "loop_thread_cpu_share",
+             "decode_tokens_per_s", "requests_per_s", "step_ms",
+             "tokens_per_s", "mfu", "forward_ms", "ms", "plain_ms",
+             "library_ms", "bound_ms", "launches", "prefix_hits",
+             "peak_page_occupancy", "peak_mem_gb", "max_abs_err_o",
+             "greedy_identical_share_spec3_vs_spec0")
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+def log_row(row, key=None):
+    """Print a phase's JSON row and keep it (the last one per key) for the
+    summary lines."""
+    log(json.dumps(row))
+    ROWS[key or str(row["phase"])] = row
 
 
 def card_line():
@@ -477,7 +530,7 @@ def phase2_forward(torch, llama, A, L):
               "top1_agree_kernel_vs_k1plain": kernel_agree,
               "max_rel_logit_diff_kernel_vs_k1plain": kernel_rel,
               "layer_err_over_bound_max": max(layer_err)}
-    log(json.dumps(result))
+    log_row(result)
     # 1) inside the model, at every layer, K1 agrees with its plain version
     #    on the same q, k, v within phase 1's row limit;
     # 2) end to end, the kernel is no farther from the plain-attention
@@ -589,8 +642,8 @@ def phase3_serve(torch, llama, decode, engine_mod, params_8b):
             if got[i] != want:
                 raise AssertionError("request %d: engine %s != generate %s"
                                      % (i, got[i], want))
-    log(json.dumps({"phase": "3a", "requests": len(reqs),
-                    "token_identical": True}))
+    log_row({"phase": "3a", "requests": len(reqs),
+             "token_identical": True})
     del eng, small
 
     # (b) the full bf16 model, 8 slots x 4096 positions
@@ -622,7 +675,7 @@ def phase3_serve(torch, llama, decode, engine_mod, params_8b):
               "decode_tokens": n_dec, "decode_s": dec_s,
               "decode_tokens_per_s": n_dec / dec_s, "wall_s": wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(json.dumps(result))
+    log_row(result)
 
 
 TRAIN_SHAPE = (8, 2048, 16, 8, 128)  # bench_1b at tokens [8, 2048]
@@ -687,13 +740,13 @@ def phase4_backward(A, torch, baseline=None):
         row["row_limit"] = (None if dt == torch.float32
                             else A.FLASH_BWD_ROW_LIMIT)
         if not ok:
-            log(json.dumps(row))
+            log_row(row)
             raise AssertionError("K2/K3 disagree with their plain version: "
                                  "%s" % json.dumps(row))
         if (B, S, H, KV, D) == TRAIN_SHAPE:
             records = _time_training_shape(A, torch, F, q, k, v, g, out, lse,
                                            delta, row, baseline)
-        log(json.dumps(row))
+        log_row(row)
     return records
 
 
@@ -827,7 +880,7 @@ def phase5a_exact_grads(torch, llama, A, L, leaves):
               "launches_plain": launches["xla"],
               "grad_excess_max": max(excess.values()),
               "grad_excess_by_leaf": excess}
-    log(json.dumps(result))
+    log_row(result)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0,
             "gmm_fwd": 0, "gmm_dw": 0}
@@ -924,7 +977,7 @@ def phase5b_train(torch, llama, A, L, training):
               "in_model_row_err_over_limit": {
                   n: max(r) for n, r in ratios.items()},
               "in_model_checks": {n: len(r) for n, r in ratios.items()}}
-    log(json.dumps(result))
+    log_row(result)
     want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
             "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0,
             "gmm_fwd": 0, "gmm_dw": 0}
@@ -1122,7 +1175,7 @@ def phase6_gmm(torch, G, FC, baseline=None):
             row["dw_bf16"] = dw_bf16_counts(torch, G, x, dy, layout, groups)
             ok = ok and row["dw_bf16"]["equals_own_f32_rounded"]
         if not ok:
-            log(json.dumps(row))
+            log_row(row)
             raise AssertionError("K5/K6 disagree with their plain versions:"
                                  " %s" % json.dumps(row))
         if name.startswith("bf16_train"):
@@ -1147,7 +1200,7 @@ def phase6_gmm(torch, G, FC, baseline=None):
                         records[key]["dw_old_new"]["new_ms"],
                         records[key]["dw_f32_old_new"]["old_ms"],
                         records[key]["dw_f32_old_new"]["new_ms"]))
-        log(json.dumps(row))
+        log_row(row)
         del x, w, dy, layout
         torch.cuda.empty_cache()
     return records
@@ -1233,7 +1286,7 @@ def phase7a_exact_grads(torch, mixtral, L, G, M, leaves):
                                        runs["kernels"]["routing"]),
               "grad_excess_max": max(excess.values()),
               "grad_excess_by_leaf": excess}
-    log(json.dumps(result))
+    log_row(result)
     L = cfg.n_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
             "flash_block_fwd": 0, "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
@@ -1412,7 +1465,7 @@ def phase7b_train(torch, mixtral, L, G, FC, training):
                   n: max(r) for n, r in ratios.items()},
               "in_model_checks": {n: len(r) for n, r in ratios.items()},
               "profile_step_0": profile}
-    log(json.dumps(result))
+    log_row(result)
     L = cfg.n_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
             "flash_block_fwd": 0, "gmm_fwd": 9 * L, "gmm_dw": 3 * L}
@@ -1450,7 +1503,7 @@ def phase7c_generate(torch, decode, params, cfg):
     result = {"phase": "7c", "prompts": 2, "new_tokens": 16, "wall_s": wall,
               "tokens_per_s": new.numel() / wall,
               "first_tokens": new[:, :4].tolist()}
-    log(json.dumps(result))
+    log_row(result)
     if out.shape != (2, 56) or not torch.equal(out[:, :40], prompts) or \
             not bool(((new >= 0) & (new < cfg.vocab_size)).all()):
         raise AssertionError("generate returned %s" % out.tolist())
@@ -1493,7 +1546,7 @@ def phase8a_block_fwd(A, FC, torch, baseline=None):
                "dtype": str(dt).split(".")[-1], "diagonal": diag,
                "readings": readings, "limit": limit}
         if not all(readings[key] <= limit[key] for key in limit):
-            log(json.dumps(row))
+            log_row(row)
             raise AssertionError("K4 disagrees with its plain version: %s"
                                  % json.dumps(row))
         if (B, S, H, KV, D) == RING_HOP:
@@ -1511,7 +1564,7 @@ def phase8a_block_fwd(A, FC, torch, baseline=None):
                     key, records[key]["ms"], records[key]["bound_ms"],
                     records[key]["bound_by"], records[key]["plain_ms"],
                     records[key]["library_ms"]))
-        log(json.dumps(row))
+        log_row(row)
         del q, k, v
         torch.cuda.empty_cache()
     return records
@@ -1611,7 +1664,7 @@ def phase8b_ring_vs_flash(A, R, L, torch):
         ok = ok and (launches["flash_block_fwd"], launches["flash_bwd_dq"],
                      launches["flash_bwd_dkv"], launches["flash_fwd"]) == (
                          hops, hops, hops, 0)
-        log(json.dumps(row))
+        log_row(row)
         if not ok:
             raise AssertionError("the ring disagrees with the flash path: %s"
                                  % json.dumps(row))
@@ -1646,7 +1699,7 @@ def phase8c_ring_exact_grads(torch, llama, R, L, leaves):
               "loss_plain": losses["xla"], "launches_ring": launches["ring"],
               "grad_excess_max": max(excess.values()),
               "grad_excess_by_leaf": excess}
-    log(json.dumps(result))
+    log_row(result)
     n = cfg.n_layers
     want = {"flash_fwd": 0, "flash_bwd_dq": 10 * n, "flash_bwd_dkv": 10 * n,
             "flash_block_fwd": 2 * 10 * n, "gmm_fwd": 0, "gmm_dw": 0}
@@ -1747,7 +1800,7 @@ def phase8d_train_ring(torch, llama, A, R, L, training):
               "in_model_k4_reading_over_limit": max(ratios),
               "in_model_k4_checks": len(ratios),
               "profile_step_0": profile}
-    log(json.dumps(result))
+    log_row(result)
     n_l = cfg.n_layers
     want = {"flash_fwd": 0, "flash_bwd_dq": 10 * n_l,
             "flash_bwd_dkv": 10 * n_l, "flash_block_fwd": 2 * 10 * n_l,
@@ -1832,7 +1885,7 @@ def phase8e_prefill_ring(torch, llama, A, R, L):
               "max_rel_logit_diff_k1_vs_plain": floor_rel,
               "in_model_k4_reading_over_limit": max(ratios),
               "in_model_k4_checks": len(ratios)}
-    log(json.dumps(result))
+    log_row(result)
     if launches["flash_block_fwd"] != 10 * cfg.n_layers or \
             launches["flash_fwd"] or not finite:
         raise AssertionError("the 8k ring prefill launched %s, expected "
@@ -1967,7 +2020,7 @@ def phase9a_factored_policies(torch, llama, L, training):
                                              policy, 16)
             out[policy]["out_of_memory_at_32"] = oom
         r = out[policy]
-        log(json.dumps(dict(r, phase="9a")))
+        log_row(dict(r, phase="9a"), "9a.%s" % policy)
         log("phase 9a: remat_policy=%r [%d, 2049]: %.1f ms a step, %.0f "
             "tokens/s, MFU %.4f, peak %.2f GB" % (
                 policy, r["tokens"][0], r["step_ms"], r["tokens_per_s"],
@@ -2071,7 +2124,7 @@ def phase9b_resume(torch, llama, L, training, tmp_root):
               "losses_bit_identical": losses == again,
               "params_bit_identical": identical,
               "params_max_rel_diff": worst}
-    log(json.dumps(result))
+    log_row(result)
     log("phase 9b: save blocked %.1f ms against a %.1f ms step (steps 3-4 "
         "%s ms while the write ran, %.1f ms of it left after them); resumed "
         "losses %s vs %s (bit identical: %s), parameters bit identical: %s"
@@ -2180,7 +2233,7 @@ def phase9c_llama3_8b(torch, llama, A, L, training):
               "in_model_checks": {n: len(r) for n, r in ratios.items()}}
     result.update(_rates(torch, training, n_params, cfg, B, S,
                          statistics.median(r["ms"] for r in records[3:])))
-    log(json.dumps(result))
+    log_row(result)
     prof = extra[1]
     log("phase 9c: %.1f ms a step, %.0f tokens/s, MFU %.4f, peak %.2f GB "
         "(params %.2f, grads %.2f, optimizer state %.2f, rest %.2f); "
@@ -2202,16 +2255,568 @@ def phase9c_llama3_8b(torch, llama, A, L, training):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving through the whole stack (HTTP -> Scheduler ->
+# PagedEngine, the paged prefix index)
+# ---------------------------------------------------------------------------
+
+HTTP_TIMEOUT_S = 600.0
+
+
+def http_generate(port, body):
+    """POST /v1/generate on 127.0.0.1:port. Returns (status, body dict,
+    seconds to the first token, seconds to the end). A streamed request
+    reads its JSON lines as they arrive; the first token's time is taken
+    at its line (for a plain request it is the whole response's)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body).encode())
+        resp = conn.getresponse()
+        if not body.get("stream") or resp.status != 200:
+            out = json.loads(resp.read() or b"{}")
+            t = time.perf_counter() - t0
+            return resp.status, out, t, t
+        first, tokens, last = None, [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            item = json.loads(line)
+            if "token" in item:
+                if first is None:
+                    first = time.perf_counter() - t0
+                tokens.append(item["token"])
+            elif item.get("done"):
+                last = item
+        resp.read()
+        out = {"new_tokens": tokens, "reason": (last or {}).get("reason"),
+               "streamed_tail": (last or {}).get("new_tokens")}
+        return resp.status, out, first, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def post_all(port, bodies):
+    """Post every body at once, one client thread each; returns the
+    results in order."""
+    import threading
+
+    results = [None] * len(bodies)
+
+    def worker(i):
+        try:
+            results[i] = http_generate(port, bodies[i])
+        except Exception as ex:  # recorded; the caller fails on it
+            results[i] = (None, {"error": repr(ex)}, None, None)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP client did not finish in %.0fs"
+                             % HTTP_TIMEOUT_S)
+    return results
+
+
+def serve_stack(params, cfg, **kw):
+    """The port's serving entry point, cmd/serve.py serve(), on the card:
+    PagedEngine -> Scheduler -> ServingServer, started on 127.0.0.1 port 0
+    with pages of 16 positions and prefill chunks of 64."""
+    from metaflow_tpu_torch.cmd.serve import serve
+
+    return serve(params, cfg, host="127.0.0.1", port=0, paged=True,
+                 page_tokens=16, prefill_chunk=64, echo=log, block=False,
+                 **kw)
+
+
+def stop_stack(server):
+    """Drain the server, clear its prefix index, and fail on a leaked
+    page or slot."""
+    sched = server.scheduler
+    if not server.shutdown(timeout=HTTP_TIMEOUT_S):
+        raise AssertionError("the scheduler did not drain")
+    if sched.prefix_cache is not None:
+        sched.prefix_cache.clear()
+    engine = sched.engine
+    pool = engine.pool
+    if pool.free_pages() != pool.usable_pages or \
+            engine.free_slots() != list(range(engine.max_slots)):
+        raise AssertionError("leaked KV pages or slots after drain: %s"
+                             % pool.stats())
+
+
+def profile_decode_window(torch, engine, first, count):
+    """Mark the engine's decode steps first .. first + count - 1 as a
+    window that profiled_window() profiles from the main thread (where the
+    profiler is set up; it sees every kernel of the process). The loop
+    thread waits at the window's edges for the profiler to start and to
+    stop, and measures the window's wall and CPU seconds itself
+    (time.thread_time: less than the wall time where the thread waited,
+    for the interpreter lock or the card). Returns the window's dict."""
+    import threading
+
+    window = {"decode_steps": count, "prefill_steps": 0,
+              "open": threading.Event(), "started": threading.Event(),
+              "close": threading.Event(), "stopped": threading.Event()}
+    decode, prefill = engine.decode_step, engine.prefill_step
+    seen = [0]
+
+    def prefill_step(*args, **kw):
+        if window["started"].is_set() and not window["close"].is_set():
+            window["prefill_steps"] += 1
+        return prefill(*args, **kw)
+
+    def decode_step(*args, **kw):
+        n = seen[0]
+        seen[0] += 1
+        if n == first:
+            window["open"].set()
+            if window["started"].wait(60.0):
+                window["t"] = time.perf_counter()
+                window["cpu"] = time.thread_time()
+        out = decode(*args, **kw)
+        if n == first + count - 1 and "t" in window:
+            torch.cuda.synchronize()
+            window["wall_s"] = time.perf_counter() - window["t"]
+            window["thread_cpu_s"] = time.thread_time() - window["cpu"]
+            window["close"].set()
+            window["stopped"].wait(60.0)
+        return out
+
+    engine.decode_step, engine.prefill_step = decode_step, prefill_step
+    return window
+
+
+def profiled_window(torch, window, busy):
+    """In the main thread: start torch.profiler when the loop thread opens
+    the window and stop it when the thread closes it, while busy() (the
+    traffic) lasts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    while not window["open"].wait(0.01):
+        if not busy():
+            raise AssertionError("phase 10b: the traffic ended before "
+                                 "the profiled decode window")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    window["profiler"] = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+    window["profiler"].start()
+    window["profiler_start_s"] = time.perf_counter() - t
+    window["started"].set()
+    while not window["close"].wait(0.01):
+        if not busy():
+            break
+    t = time.perf_counter()
+    window["profiler"].stop()
+    window["profiler_stop_s"] = time.perf_counter() - t
+    window["stopped"].set()
+
+
+def window_summary(window):
+    """Device-busy time against wall time, and the device operations
+    (kernels, copies, fills: one stream, so their summed time is the busy
+    time) and kernel launch calls per engine step, of a closed
+    profile_decode_window."""
+    if "wall_s" not in window or "profiler" not in window:
+        raise AssertionError("phase 10b: the profiled decode window did "
+                             "not close")
+    device_ms, device_ops, launch_calls = 0.0, 0, 0
+    for ev in window["profiler"].key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            device_ms += getattr(ev, "self_device_time_total", getattr(
+                ev, "self_cuda_time_total", 0)) / 1e3
+            device_ops += ev.count
+        elif ev.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel"):
+            launch_calls += ev.count
+    wall_ms = window["wall_s"] * 1e3
+    steps = window["decode_steps"] + window["prefill_steps"]
+    return {"decode_steps": window["decode_steps"],
+            "prefill_steps": window["prefill_steps"], "wall_ms": wall_ms,
+            "step_ms": wall_ms / steps, "device_busy_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_ops_per_step": device_ops / steps,
+            "launch_calls_per_step": launch_calls / steps,
+            "host_us_per_launch": wall_ms * 1e3 / max(1, launch_calls),
+            "loop_thread_cpu_share": window["thread_cpu_s"]
+            / window["wall_s"],
+            "profiler_start_s": window["profiler_start_s"],
+            "profiler_stop_s": window["profiler_stop_s"]}
+
+
+def top2_gap(torch, llama, params, cfg, context):
+    """The f32 gap between the two largest next-token logits after
+    `context`, from the plain-attention forward."""
+    c = dataclasses.replace(cfg, attention_impl="xla")
+    with torch.no_grad():
+        logits = llama.forward(params, [context], c,
+                               device=params["embed"].device)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def compare_tokens(torch, llama, params, cfg, label, prompts, got, want,
+                   tie_log):
+    """Token identity, request by request. The one exception is a position
+    where the f32 top-2 logit gap is below 1e-5 (two orders of summation
+    may pick either token): it is printed with its gap and the request
+    compared up to it."""
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = top2_gap(torch, llama, params, cfg, list(p) + list(b[:j]))
+        entry = {"check": label, "request": i, "position": j,
+                 "got": a[j:j + 1], "want": b[j:j + 1], "top2_gap": gap}
+        log("phase 10a: mismatch %s" % json.dumps(entry))
+        if gap >= 1e-5 or len(a) != len(b):
+            raise AssertionError("phase 10a %s: request %d differs at "
+                                 "token %d (top-2 gap %.3g)"
+                                 % (label, i, j, gap))
+        tie_log.append(entry)
+
+
+def phase10a_exact(torch, llama, decode, serving):
+    """A narrow f32 Llama (dim 512, 4 layers, GQA 8/2, vocab 32000, pages
+    of 16) served through PagedEngine -> Scheduler -> ServingServer on the
+    card: greedy against generate(), spec_k 0 against spec_k 3, prefix
+    hits against a cold run, sampled against SlotEngine, and the chunked
+    path against the dense one."""
+    import numpy as np
+
+    cfg = llama.LlamaConfig.llama3_8b(dim=512, n_layers=4, n_heads=8,
+                                      n_kv_heads=2, ffn_dim=1536,
+                                      vocab_size=32000, dtype="float32",
+                                      max_seq_len=1024)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(10), device="cuda")
+    rng = np.random.default_rng(10)
+    greedy = [rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in (5, 17, 40, 64, 90, 200, 333, 600)]
+    n_new = 24
+    sampled = [{"tokens": rng.integers(0, cfg.vocab_size, n).tolist(),
+                "max_new_tokens": n_new, "temperature": 0.8,
+                "top_p": 0.95, "seed": 40 + i, "stream": i % 2 == 1}
+               for i, n in enumerate((9, 77, 130, 401))]
+    prefix = rng.integers(0, cfg.vocab_size, 300).tolist()
+    shared = [prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+              for n in (1, 7, 16, 33, 80)]
+    ties = []
+
+    def serve(prompts, bodies=None, first=None, **kw):
+        kw.setdefault("attn_impl", "dense")
+        kw.setdefault("spec_k", 0)
+        kw.setdefault("prefix_cache_mb", 0)   # 0: no prefix cache
+        srv = serve_stack(params, cfg, slots=4, max_seq_len=1024, **kw)
+        try:
+            if first is not None:   # registers the prefix before the rest
+                post_all(srv.port, [{"tokens": first,
+                                     "max_new_tokens": n_new}])
+            bodies = bodies or [{"tokens": p, "max_new_tokens": n_new,
+                                 "stream": i % 3 == 0}
+                                for i, p in enumerate(prompts)]
+            res = post_all(srv.port, bodies)
+            stats = srv.scheduler.stats()
+        finally:
+            stop_stack(srv)
+        for status, body, _, _ in res:
+            if status != 200 or body.get("reason") != "length":
+                raise AssertionError("phase 10a: a response was %s %s"
+                                     % (status, body))
+        return [r[1]["new_tokens"] for r in res], stats
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = [decode.generate(params, [p], cfg, n_new, max_seq_len=1024,
+                                device="cuda")[0, len(p):].tolist()
+                for p in greedy]
+    dense, _ = serve(greedy)
+    compare_tokens(torch, llama, params, cfg, "greedy vs generate",
+                   greedy, dense, want, ties)
+    spec, spec_stats = serve(greedy, spec_k=3)
+    compare_tokens(torch, llama, params, cfg, "spec_k 3 vs spec_k 0",
+                   greedy, spec, dense, ties)
+    if spec_stats["speculative"]["steps"] < 1:
+        raise AssertionError("phase 10a: spec_k 3 ran no verify step")
+    chunked, _ = serve(greedy, attn_impl="chunked")
+    compare_tokens(torch, llama, params, cfg, "chunked vs dense", greedy,
+                   chunked, dense, ties)
+    cold, _ = serve(shared)
+    hits, hit_stats = serve(shared, first=prefix + [7], prefix_cache_mb=256)
+    compare_tokens(torch, llama, params, cfg, "prefix hits vs cold",
+                   shared, hits, cold, ties)
+    pstats = hit_stats["prefix_cache"]
+    if pstats["hits"] < len(shared) or \
+            hit_stats["kv_pages"]["kv_bytes_copied"] != 0:
+        raise AssertionError("phase 10a: prefix hits %s" % pstats)
+    paged_sampled, _ = serve(None, bodies=sampled, spec_k=3)
+    slot = serving.SlotEngine(params, cfg, max_slots=4, max_seq_len=1024,
+                              prefill_chunk=64, device="cuda")
+    sched = serving.Scheduler(slot)
+    reqs = [sched.submit(serving.Request(
+        b["tokens"], max_new_tokens=n_new, temperature=b["temperature"],
+        top_p=b["top_p"], rng=b["seed"])) for b in sampled]
+    with torch.inference_mode():
+        sched.run_until_idle(100_000)
+    compare_tokens(torch, llama, params, cfg, "sampled vs SlotEngine",
+                   [b["tokens"] for b in sampled], paged_sampled,
+                   [r.generated for r in reqs], ties)
+    result = {"phase": "10a", "greedy_requests": len(greedy),
+              "sampled_requests": len(sampled),
+              "prefix_requests": len(shared), "new_tokens": n_new,
+              "checks": ["greedy vs generate", "spec_k 3 vs spec_k 0",
+                         "chunked vs dense", "prefix hits vs cold",
+                         "sampled vs SlotEngine"],
+              "near_ties": ties, "spec": spec_stats["speculative"],
+              "prefix_hits": pstats["hits"],
+              "prefix_hit_tokens": pstats["hit_tokens"],
+              "token_identical": not ties,
+              "seconds": time.perf_counter() - t0}
+    log_row(result)
+    del params
+    _free(torch)
+    return result
+
+
+def phase10b_serve_8b(torch, llama, L, slot_result=None):
+    """Llama-3-8B uncut in bf16 (random weights from a seed) served over
+    HTTP through serve(): PagedEngine(max_slots=16, max_seq_len=4096,
+    page_tokens=16, prefill_chunk=64) with a 2048 MB PagedPrefixIndex; 32
+    requests posted at once from 32 client threads, once with spec_k 0
+    and once with spec_k 3, each on an engine of its own. A third pass of
+    spec_k 0's traffic profiles decode steps 40-49 and whatever ran
+    between them, then cancels what is left."""
+    import threading
+
+    import numpy as np
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, device="cuda")
+    n_params = llama.num_params(params)
+    torch.cuda.synchronize()
+    log("phase 10b: llama3_8b bf16 params %.3fB, depth %d of %d, init %.1fs"
+        % (n_params / 1e9, cfg.n_layers, cfg.n_layers,
+           time.perf_counter() - t0))
+    if abs(n_params - 8.03e9) > 0.01e9:
+        raise AssertionError("phase 10b: %d parameters" % n_params)
+    rng = np.random.default_rng(100)
+    system = rng.integers(0, cfg.vocab_size, 1024).tolist()
+    bodies = []
+    for i in range(32):
+        if i % 2 == 0:   # the system prompt and at least 17 own tokens
+            n = int(rng.integers(1024 + 17, 2001))
+            toks = system + rng.integers(0, cfg.vocab_size,
+                                         n - 1024).tolist()
+        else:
+            n = int(rng.integers(17, 2001))
+            toks = rng.integers(0, cfg.vocab_size, n).tolist()
+        body = {"tokens": toks, "max_new_tokens": 64,
+                "stream": i % 4 == 1}
+        if i % 4 >= 2:   # half sampled, half greedy
+            body.update(temperature=0.8, top_p=0.95, seed=1000 + i)
+        bodies.append(body)
+    order = rng.permutation(32).tolist()   # the posting order
+    bodies = [bodies[i] for i in order]
+    runs = {}
+    # the third pass repeats spec_k 0's traffic to profile decode steps
+    # 40-49 (the profiler would slow the measured passes), then cancels
+    # what is left of it
+    for spec_k, profile in ((0, False), (3, False), (0, True)):
+        srv = serve_stack(params, cfg, slots=16, max_seq_len=4096,
+                          spec_k=spec_k, prefix_cache_mb=2048)
+        sched = srv.scheduler
+        eng = sched.engine
+        pool = eng.pool
+        window = (profile_decode_window(torch, eng, 40, 10) if profile
+                  else None)
+        posted = [dict(b, request_id="p%d" % i) for i, b in enumerate(
+            bodies)] if profile else bodies
+        peak = {"pages": 0, "shared": 0}
+        done = threading.Event()
+
+        def monitor():
+            while not done.wait(0.02):
+                s = pool.stats()
+                peak["pages"] = max(peak["pages"], s["pages_in_use"])
+                peak["shared"] = max(peak["shared"], s["shared_pages"])
+
+        watcher = threading.Thread(target=monitor, daemon=True)
+        try:
+            # the system prompt is warmed once, as a deployment warms it
+            # before traffic: its pages are registered in the index
+            warm = post_all(srv.port, [{"tokens": system + [1],
+                                        "max_new_tokens": 1}])[0]
+            if warm[0] != 200:
+                raise AssertionError("phase 10b warm-up: %s" % (warm,))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            watcher.start()
+            dec0 = sched.busy_decode_s
+            hits0, miss0 = sched.prefix_hits, sched.prefix_misses
+            L.reset_launch_counts()
+            t = time.perf_counter()
+            box = {}
+            poster = threading.Thread(target=lambda: box.update(
+                results=post_all(srv.port, posted)), daemon=True)
+            poster.start()
+            if window is not None:
+                profiled_window(torch, window, poster.is_alive)
+                for i in range(len(posted)):
+                    sched.cancel("p%d" % i)
+            poster.join(HTTP_TIMEOUT_S + 60)
+            wall = time.perf_counter() - t
+            if "results" not in box:
+                raise AssertionError("phase 10b spec_k %d: the clients did "
+                                     "not finish" % spec_k)
+            results = box["results"]
+            launches = dict(L.LAUNCHES)
+            stats = sched.stats()
+            decode_s = sched.busy_decode_s - dec0
+        finally:
+            done.set()
+            stop_stack(srv)   # drains, clears the index, checks leaks
+        reasons = ("length", "cancelled") if profile else ("length",)
+        bad = [(i, r[0], r[1].get("reason"), r[1].get("error"))
+               for i, r in enumerate(results)
+               if r[0] != 200 or r[1].get("reason") not in reasons
+               or (not profile and len(r[1].get("new_tokens", ())) != 64)]
+        if bad:
+            raise AssertionError("phase 10b spec_k %d: bad responses %s"
+                                 % (spec_k, bad))
+        if profile:
+            summary = dict(window_summary(window), cancelled=sum(
+                r[1].get("reason") == "cancelled" for r in results))
+            log("phase 10b: profiled window of a third spec_k 0 pass %s"
+                % json.dumps(summary))
+            ROWS["10b.window"] = summary
+            del eng, pool, sched, srv, window
+            _free(torch)
+            continue
+        ttft = sorted(r[2] for r, b in zip(results, bodies)
+                      if b.get("stream"))
+        tokens = [r[1]["new_tokens"] for r in results]
+        for toks in tokens:
+            if not all(0 <= x < cfg.vocab_size for x in toks):
+                raise AssertionError("phase 10b: a token out of range")
+        hits = stats["prefix_cache"]["hits"] - hits0
+        kv = stats["kv_pages"]
+        prompt_tokens = sum(len(b["tokens"]) for b in bodies)
+        prefilled = prompt_tokens - hits * len(system)
+        run = {"spec_k": spec_k, "requests": len(bodies), "wall_s": wall,
+               "requests_per_s": len(bodies) / wall,
+               "ttft_stream_s": ttft,
+               "ttft_p50_s": ttft[len(ttft) // 2],
+               "ttft_p99_s": ttft[-1],
+               "server_ttft_p50_ms": stats["p50_ttft_ms"],
+               "server_ttft_p99_ms": stats["p99_ttft_ms"],
+               "decode_tokens": sum(len(x) - 1 for x in tokens),
+               "decode_s": decode_s,
+               "decode_tokens_per_s": sum(len(x) - 1 for x in tokens)
+               / decode_s,
+               "output_tokens_per_s": sum(len(x) for x in tokens) / wall,
+               "prefill_s": stats["goodput"]["serve_prefill_s"],
+               "prompt_tokens": prompt_tokens,
+               "prefill_tokens": prefilled,
+               "prefill_tokens_per_s": prefilled
+               / stats["goodput"]["serve_prefill_s"],
+               "decode_steps": stats["decode_steps"],
+               "decode_step_ms": decode_s / stats["decode_steps"] * 1e3,
+               "peak_pages_in_use": peak["pages"],
+               "pages_total": pool.usable_pages,
+               "peak_page_occupancy": peak["pages"] / pool.usable_pages,
+               "peak_shared_pages": peak["shared"],
+               "prefix_hits": hits,
+               "prefix_misses": stats["prefix_cache"]["misses"] - miss0,
+               "prefix_hit_tokens": stats["prefix_cache"]["hit_tokens"],
+               "shared_pages_attached": kv["shared_pages_attached"],
+               "kv_bytes_copied": kv["kv_bytes_copied"],
+               "cow_pages": kv["cow_pages"],
+               "spec": stats["speculative"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "pool_gb": 2 * pool.kv["k"].numel()
+               * pool.kv["k"].element_size() / 1e9,
+               "launches": launches, "attn_impl": eng.attn_impl}
+        runs[spec_k] = (run, tokens)
+        log_row(dict({"phase": "10b"}, **run), "10b.k%d" % spec_k)
+        if hits < 15 or kv["kv_bytes_copied"] != 0:
+            raise AssertionError("phase 10b: %d prefix hits, %d KV bytes "
+                                 "copied" % (hits, kv["kv_bytes_copied"]))
+        del eng, pool, sched, srv
+        _free(torch)
+    greedy = [i for i, b in enumerate(bodies) if not b.get("temperature")]
+    same = sum(runs[0][1][i] == runs[3][1][i] for i in greedy)
+    result = {"phase": "10b", "params": n_params,
+              "greedy_identical_share_spec3_vs_spec0": same / len(greedy),
+              "spec0": runs[0][0], "spec3": runs[3][0],
+              "slot_engine_3b": slot_result}
+    log_row({"phase": "10b", "params": n_params,
+             "greedy_identical_share_spec3_vs_spec0": same / len(greedy),
+             "slot_engine_3b": slot_result})
+    del params
+    _free(torch)
+    return result
+
+
+def summary_lines(done, failed=None):
+    """One compact line (at most 200 bytes) per logged phase row: its
+    pass result and its headline numbers, printed at the end where the
+    tail of the output keeps them."""
+    out = []
+    for key, row in ROWS.items():
+        group = key.split(".")[0].rstrip("abcde")
+        state = "ok" if group in done else (
+            "FAILED" if group == failed else "partial")
+        text = "SUMMARY %s %s" % (key, state)
+        keys = [k for k in HEADLINES if k in row] + [
+            k for k in row if k not in HEADLINES]
+        for k in keys:
+            v = row[k]
+            if k == "phase" or isinstance(v, (dict, list)) or v is None:
+                continue
+            if isinstance(v, float):
+                v = "%.5g" % v
+            elif isinstance(v, str) and len(v) > 16:
+                continue
+            item = " %s=%s" % (k, v)
+            if len(text) + len(item) > 200:
+                break
+            text += item
+        out.append(text)
+    return out
+
+
 def main(argv=None):
     import torch
 
     args = list(sys.argv[1:] if argv is None else argv)
-    baseline_root = None
-    if args[:1] == ["--baseline"] and len(args) == 2:
-        baseline_root = args[1]
-    elif args:
-        print("usage: chip_smoke.py [--baseline CHECKOUT]", file=sys.stderr)
-        return 2
+    baseline_root, selected = None, set(ALL_PHASES)
+    usage = "usage: chip_smoke.py [--baseline CHECKOUT] [--phases 0,3,10]"
+    while args:
+        flag = args.pop(0)
+        if flag in ("--baseline", "--phases") and args:
+            value = args.pop(0)
+            if flag == "--baseline":
+                baseline_root = value
+            else:
+                selected = {x.strip() for x in value.split(",")
+                            if x.strip()} - {"0"}
+                if not selected <= set(ALL_PHASES):
+                    print(usage, file=sys.stderr)
+                    return 2
+        else:
+            print(usage, file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2219,8 +2824,20 @@ def main(argv=None):
         print("chip_smoke: the metaflow_tpu_torch package is missing",
               file=sys.stderr)
         return 2
+    done, current = [], ["0"]
+    try:
+        return run_phases(torch, baseline_root, selected, done, current)
+    except BaseException as ex:
+        for line in summary_lines(done, failed=current[0]):
+            log(line)
+        log("SUMMARY %s FAILED: %s" % (
+            current[0], (str(ex).splitlines() or [repr(ex)])[0][:160]))
+        raise
+
+
+def run_phases(torch, baseline_root, selected, done, current):
     sys.path.insert(0, HERE)
-    from metaflow_tpu_torch import training
+    from metaflow_tpu_torch import serving, training
     from metaflow_tpu_torch.inference import decode
     from metaflow_tpu_torch.models import llama, mixtral
     from metaflow_tpu_torch.ops import KERNELS, _build
@@ -2235,11 +2852,21 @@ def main(argv=None):
     R = importlib.import_module("metaflow_tpu_torch.ops.ring_attention")
     start = time.perf_counter()
 
+    def begin(phase):
+        current[0] = phase
+        return phase in selected
+
+    def end(phase, label=None):
+        done.append(phase)
+        log("phase %s done at %.1fs" % (label or phase,
+                                        time.perf_counter() - start))
+
     # phase 0: the card, the builds, the numerics settings
     card = card_line()
     log("card: %s" % card)
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
+    log("phases: 0,%s" % ",".join(p for p in ALL_PHASES if p in selected))
     sources = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS
                       if k.get("source")})
     t = time.perf_counter()
@@ -2272,71 +2899,95 @@ def main(argv=None):
     log("allow_tf32: matmul=%s cudnn=%s" % (
         torch.backends.cuda.matmul.allow_tf32,
         torch.backends.cudnn.allow_tf32))
-    log("phase 0 done at %.1fs" % (time.perf_counter() - start))
+    ROWS["0"] = {"kernel_build_s": time.perf_counter() - t,
+                 "sources": len(sources)}
+    end("0")
 
-    inference = phase1_kernel_vs_plain(A, FC, torch)
-    log("phase 1 done at %.1fs" % (time.perf_counter() - start))
-    params, fwd_launches = phase2_forward(torch, llama, A, L)
-    log("phase 2 done at %.1fs" % (time.perf_counter() - start))
-    phase3_serve(torch, llama, decode, engine_mod, params)
-    log("phase 3 done at %.1fs" % (time.perf_counter() - start))
+    inference = records = train_launches = gmm_records = None
+    moe_launches = block_records = ring_launches = None
+    prefill_launches = factored = flagship = fwd_launches = None
+    if begin("1"):
+        inference = phase1_kernel_vs_plain(A, FC, torch)
+        ROWS["1"] = inference
+        end("1")
+    params = None
+    if begin("2"):
+        params, fwd_launches = phase2_forward(torch, llama, A, L)
+        end("2")
+    if begin("3"):
+        if params is None:
+            params = llama.init_params(
+                llama.LlamaConfig.llama3_8b(),
+                torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+        phase3_serve(torch, llama, decode, engine_mod, params)
+        end("3")
     del params  # the 8B weights: phases 4 and 5 need the memory
-    gc.collect()
-    torch.cuda.empty_cache()
-    records = phase4_backward(A, torch, baseline.get("flash_bwd"))
-    log("phase 4 done at %.1fs" % (time.perf_counter() - start))
-    phase5a_exact_grads(torch, llama, A, L, leaves)
-    log("phase 5a done at %.1fs" % (time.perf_counter() - start))
-    train_launches = phase5b_train(torch, llama, A, L, training)
-    log("phase 5b done at %.1fs" % (time.perf_counter() - start))
-    gc.collect()  # bench_1b's state: the Mixtral phases need the memory
-    torch.cuda.empty_cache()
-    gmm_records = phase6_gmm(torch, G, FC, baseline.get("gmm"))
-    log("phase 6 done at %.1fs" % (time.perf_counter() - start))
-    phase7a_exact_grads(torch, mixtral, L, G, M, leaves)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("phase 7a done at %.1fs" % (time.perf_counter() - start))
-    moe_launches, _, moe_params, moe_cfg = phase7b_train(
-        torch, mixtral, L, G, FC, training)
-    log("phase 7b done at %.1fs" % (time.perf_counter() - start))
-    phase7c_generate(torch, decode, moe_params, moe_cfg)
-    log("phase 7c done at %.1fs" % (time.perf_counter() - start))
-    del moe_params  # the Mixtral weights: the ring phases need the memory
-    gc.collect()
-    torch.cuda.empty_cache()
-    block_records = phase8a_block_fwd(A, FC, torch, baseline.get("flash_fwd"))
-    log("phase 8a done at %.1fs" % (time.perf_counter() - start))
-    phase8b_ring_vs_flash(A, R, L, torch)
-    log("phase 8b done at %.1fs" % (time.perf_counter() - start))
-    phase8c_ring_exact_grads(torch, llama, R, L, leaves)
-    gc.collect()
-    torch.cuda.empty_cache()
-    log("phase 8c done at %.1fs" % (time.perf_counter() - start))
-    ring_launches, _ = phase8d_train_ring(torch, llama, A, R, L, training)
-    gc.collect()  # bench_1b's state: the 8B prefill needs the memory
-    torch.cuda.empty_cache()
-    log("phase 8d done at %.1fs" % (time.perf_counter() - start))
-    prefill_launches, _ = phase8e_prefill_ring(torch, llama, A, R, L)
-    log("phase 8e done at %.1fs" % (time.perf_counter() - start))
     _free(torch)
-    factored = phase9a_factored_policies(torch, llama, L, training)
-    log("phase 9a done at %.1fs" % (time.perf_counter() - start))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        phase9b_resume(torch, llama, L, training, tmp)
-    log("phase 9b done at %.1fs" % (time.perf_counter() - start))
-    flagship = phase9c_llama3_8b(torch, llama, A, L, training)
-    log("phase 9c done at %.1fs" % (time.perf_counter() - start))
+    if begin("4"):
+        records = phase4_backward(A, torch, baseline.get("flash_bwd"))
+        end("4")
+    if begin("5"):
+        phase5a_exact_grads(torch, llama, A, L, leaves)
+        log("phase 5a done at %.1fs" % (time.perf_counter() - start))
+        train_launches = phase5b_train(torch, llama, A, L, training)
+        end("5", "5b")
+        _free(torch)  # bench_1b's state: the Mixtral phases need the memory
+    if begin("6"):
+        gmm_records = phase6_gmm(torch, G, FC, baseline.get("gmm"))
+        end("6")
+    if begin("7"):
+        phase7a_exact_grads(torch, mixtral, L, G, M, leaves)
+        _free(torch)
+        log("phase 7a done at %.1fs" % (time.perf_counter() - start))
+        moe_launches, _, moe_params, moe_cfg = phase7b_train(
+            torch, mixtral, L, G, FC, training)
+        log("phase 7b done at %.1fs" % (time.perf_counter() - start))
+        phase7c_generate(torch, decode, moe_params, moe_cfg)
+        end("7", "7c")
+        del moe_params  # the Mixtral weights: the ring phases need memory
+        _free(torch)
+    if begin("8"):
+        block_records = phase8a_block_fwd(A, FC, torch,
+                                          baseline.get("flash_fwd"))
+        log("phase 8a done at %.1fs" % (time.perf_counter() - start))
+        phase8b_ring_vs_flash(A, R, L, torch)
+        log("phase 8b done at %.1fs" % (time.perf_counter() - start))
+        phase8c_ring_exact_grads(torch, llama, R, L, leaves)
+        _free(torch)
+        log("phase 8c done at %.1fs" % (time.perf_counter() - start))
+        ring_launches, _ = phase8d_train_ring(torch, llama, A, R, L,
+                                              training)
+        _free(torch)  # bench_1b's state: the 8B prefill needs the memory
+        log("phase 8d done at %.1fs" % (time.perf_counter() - start))
+        prefill_launches, _ = phase8e_prefill_ring(torch, llama, A, R, L)
+        end("8", "8e")
+        _free(torch)
+    if begin("9"):
+        factored = phase9a_factored_policies(torch, llama, L, training)
+        log("phase 9a done at %.1fs" % (time.perf_counter() - start))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            phase9b_resume(torch, llama, L, training, tmp)
+        log("phase 9b done at %.1fs" % (time.perf_counter() - start))
+        flagship = phase9c_llama3_8b(torch, llama, A, L, training)
+        end("9", "9c")
+    if begin("10"):
+        phase10a_exact(torch, llama, decode, serving)
+        log("phase 10a done at %.1fs" % (time.perf_counter() - start))
+        slot = ROWS.get("3b")
+        phase10b_serve_8b(torch, llama, L, slot_result=None if
+                          slot is None else {
+                              k: slot[k] for k in (
+                                  "requests", "ttft_p50_s",
+                                  "decode_tokens_per_s", "wall_s",
+                                  "peak_mem_gb")})
+        end("10", "10b")
+    current[0] = "report"
 
-    # one line per kernel: the flash kernels' launches in the bench_1b run
-    # (phase 5b; a step's in phases 9a and 9c beside them) and times at
-    # its training shape (phase 4), K1 also at the
-    # inference shape (phases 1, 2), K2 and K3 also their launches in the
-    # 8k ring run (phase 8d); K4's launches in the 8k ring run (phase 8d)
-    # and times at its diagonal hop (phase 8a), with the full hop beside
-    # them; K5 and K6's launches in the Mixtral run (phase 7b) and times at
-    # its gate/up shape (phase 6), with the down shape and K5's dx beside
-    # them
+    # the kernel report needs every phase that times or counts a kernel;
+    # a run of some phases reports each kernel with its numbers null
+    every_phase = all(p in selected for p in ("1", "2", "4", "5", "6", "7",
+                                              "8", "9"))
     ported, not_yet = [], []
     for k in KERNELS:
         if k.get("source") is None:
@@ -2346,6 +2997,14 @@ def main(argv=None):
         line = {"name": k["name"], "route": k["route"],
                 "source": k["source"], "replaces": k["replaces"],
                 "status": "ported"}
+        if not every_phase:
+            line.update(launches=None, max_abs_err=None, ms=None,
+                        plain_ms=None, bound_ms=None, bound_by=None,
+                        library_ms=None,
+                        note="not measured: this run drove phases 0,%s"
+                        % ",".join(p for p in ALL_PHASES if p in selected))
+            ported.append(line)
+            continue
         if k["name"] == "flash_block_fwd":
             diag, full = block_records["diag"], block_records["full"]
             line.update(
@@ -2451,8 +3110,10 @@ def main(argv=None):
                 line["earlier_build_ms"] = rec["old_new"]["old_ms"]
                 line["in_turns_ms"] = rec["old_new"]["new_ms"]
         ported.append(line)
-    log(card_line())
     log(json.dumps({"kernels": ported, "not_yet_ported": not_yet}))
+    for line in summary_lines(done):
+        log(line)
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

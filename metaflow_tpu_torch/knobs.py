@@ -1,24 +1,101 @@
 """The environment knobs the PyTorch port reads.
 
-A copy of the few entries of the JAX package's knob registry that the port
-needs, with the same names, defaults and parse rule (an unset or unparsable
-value gives the default)."""
+A copy of the entries of the JAX package's knob registry that the port
+needs, with the same names, defaults, types and parse rules:
+
+* unset OR empty-string value -> the default;
+* malformed int/float -> the default;
+* bool: a set value counts as false only for 0/false/no/off
+  (case-insensitive), everything else is true;
+* `fallback=` overrides the default at one call site.
+"""
 
 import os
 
-_DEFAULTS = {
-    "TPUFLOW_FLASH_BLOCK_Q": 128,
-    "TPUFLOW_FLASH_BLOCK_K": 128,
-    "TPUFLOW_DECODE_CHUNK": 256,
+_UNSET = object()
+
+#: values (lowercased, stripped) that make a *set* bool knob false
+_FALSEY = ("0", "false", "no", "off")
+
+# name -> (type, default)
+KNOBS = {
+    "TPUFLOW_FLASH_BLOCK_Q": ("int", 128),
+    "TPUFLOW_FLASH_BLOCK_K": ("int", 128),
+    "TPUFLOW_DECODE_CHUNK": ("int", 256),
+    # training
+    "TPUFLOW_PEAK_TFLOPS": ("float", None),
+    # serving
+    "TPUFLOW_PAGED": ("bool", False),
+    "TPUFLOW_KV_PAGE_TOKENS": ("int", 16),
+    "TPUFLOW_SPEC_K": ("int", 0),
+    "TPUFLOW_PREFIX_CACHE_MB": ("float", 0.0),
+    "TPUFLOW_SERVE_LATENCY_WINDOW": ("int", 1024),
+    "TPUFLOW_TRACE_REQUESTS": ("bool", True),
+    # telemetry
+    "TPUFLOW_TELEMETRY": ("bool", True),
+    "TPUFLOW_TELEMETRY_FLUSH_EVERY": ("int", 512),
+    # tenancy
+    "TPUFLOW_TENANT_WEIGHTS": ("str", ""),
+    "TPUFLOW_TENANT_PRIORITIES": ("str", ""),
+    "TPUFLOW_TENANT_BUDGETS": ("str", ""),
+    "TPUFLOW_TENANT_BUDGET_WINDOW_S": ("float", 10.0),
+    "TPUFLOW_TENANT_DEFAULT": ("str", "default"),
+    "TPUFLOW_TENANT_QUANTUM": ("int", 256),
+    "TPUFLOW_CACHE_ROUTE_BLOCK": ("int", 16),
+    "TPUFLOW_CACHE_ROUTE_DIGESTS": ("int", 512),
 }
 
 
-def get_int(name):
-    default = _DEFAULTS[name]
-    value = os.environ.get(name)
+def _default(name, fallback):
+    if name not in KNOBS:
+        raise KeyError("unregistered knob %r" % (name,))
+    return KNOBS[name][1] if fallback is _UNSET else fallback
+
+
+def _raw(name, env):
+    value = (env if env is not None else os.environ).get(name)
     if value is None or value == "":
+        return None
+    return value
+
+
+def get_raw(name, env=None):
+    """The raw string value ('' and unset both -> None)."""
+    _default(name, _UNSET)
+    return _raw(name, env)
+
+
+def get_str(name, env=None, fallback=_UNSET):
+    default = _default(name, fallback)
+    value = _raw(name, env)
+    return default if value is None else value
+
+
+def get_bool(name, env=None, fallback=_UNSET):
+    default = _default(name, fallback)
+    value = _raw(name, env)
+    if value is None:
+        return default
+    return value.strip().lower() not in _FALSEY
+
+
+def get_int(name, env=None, fallback=_UNSET):
+    default = _default(name, fallback)
+    value = _raw(name, env)
+    if value is None:
         return default
     try:
         return int(float(value))
-    except ValueError:
+    except (TypeError, ValueError):
+        return default
+
+
+def get_float(name, env=None, fallback=_UNSET):
+    default = _default(name, fallback)
+    value = _raw(name, env)
+    if value is None:
+        return default
+    try:
+        return float(value)
+    except (TypeError, ValueError):
         return default

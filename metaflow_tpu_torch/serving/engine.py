@@ -118,6 +118,7 @@ class SlotEngine(object):
         self._prompt = [None] * B                 # remaining host prompt
         self._prefill_cursor = np.zeros(B, np.int64)
         self._noise_gen = torch.Generator(device=self.device)
+        self._slot_ctx = [None] * B               # occupant's identity
         # device mirrors of the decode-step inputs: steady-state decode
         # re-uploads nothing (the step advances tok/pos on the device);
         # slot membership or knob changes set _dirty and the next step
@@ -130,6 +131,37 @@ class SlotEngine(object):
 
     def free_slots(self):
         return [i for i in range(self.max_slots) if not self.active[i]]
+
+    def occupancy(self):
+        return float(self.active.sum()) / self.max_slots
+
+    def fits(self, prompt_len, max_new_tokens):
+        """Could this request EVER be admitted? False is a permanent 413
+        at submit time (the scheduler's admission capacity check), not
+        backpressure."""
+        return prompt_len + max_new_tokens <= self.max_seq_len
+
+    def max_context_tokens(self):
+        """The largest prompt+max_new any request may carry."""
+        return self.max_seq_len
+
+    def kv_token_bytes(self):
+        """Bytes one cached token costs (k + v across layers): the unit
+        the prefix-cache byte budget is denominated in."""
+        k = self._cache["k"]
+        layers, _, _, kv_heads, head_dim = k.shape
+        return 2 * layers * kv_heads * head_dim * k.element_size()
+
+    def bind_slot_context(self, slot, ctx):
+        """Attach the occupant's identity/trace context ({"request_id",
+        "trace", "span"} from the scheduler) to a slot, so engine-level
+        instrumentation (the serve.prefill_chunk timer) attributes device
+        work to the request that bought it."""
+        self._slot_ctx[slot] = dict(ctx) if ctx else None
+
+    def slot_context(self, slot):
+        """The context bound at admit time, or None for a free slot."""
+        return self._slot_ctx[slot]
 
     # ---------- slot lifecycle ----------
 
@@ -229,6 +261,7 @@ class SlotEngine(object):
         """Reclaim a slot immediately; the stale cache contents stay and
         are overwritten by the next occupant's prefill."""
         self.active[slot] = False
+        self._slot_ctx[slot] = None
         self.decoding[slot] = False
         self.pos[slot] = 0  # park the masked-lane write cursor
         self._prompt[slot] = None

@@ -1,6 +1,8 @@
 """Training-step arithmetic: FLOPs per token and the card's peak rate, the
 two halves of MFU. Per-step telemetry (`instrument_train_step`) waits for
-the port of the JAX package's flight recorder."""
+the `train.step` record of the training-telemetry slice."""
+
+from .. import knobs
 
 # dense bf16 peak TFLOP/s per card, from NVIDIA's data sheets (SXM parts),
 # substring-matched against torch.cuda.get_device_name
@@ -11,7 +13,16 @@ GPU_PEAK_TFLOPS = [
 
 
 def peak_tflops(device_kind):
-    """Published dense bf16 peak TFLOP/s for a card's name, or None."""
+    """Published dense bf16 peak TFLOP/s for a card's name, or None.
+
+    TPUFLOW_PEAK_TFLOPS overrides the table when it is set and parses, as
+    in the JAX package; an empty or unparsable value falls through."""
+    override = knobs.get_raw("TPUFLOW_PEAK_TFLOPS")
+    if override:
+        try:
+            return float(override)
+        except ValueError:
+            pass
     kind = (device_kind or "").lower()
     return next((tf for sub, tf in GPU_PEAK_TFLOPS if sub in kind), None)
 
