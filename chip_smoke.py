@@ -133,6 +133,25 @@ Phase 10 serves through the whole stack users run, built by the port's
          thread's CPU share) and cancels the rest. The engine's prefill and decode
          launch no kernel (the JAX engine reaches no Pallas kernel
          either); their launch counts are printed.
+Phase 11 trains as a user's flow step does: (a) Llama-3-8B uncut in bf16
+         on memory_efficient_optimizer at tokens [4, 2049] for 8 steps,
+         fed by StreamingTokenBatches from a seeded corpus built with
+         build_corpus into a LocalFlowDataStore (through prefetch onto the
+         card), make_trainer(telemetry=...) recording into a
+         FlightRecorder, TPUFLOW_PROFILE_STEPS=4:6: one train.step record
+         a step with the pinned keys, the records' tokens/s within 3 % of
+         CUDA events around each call (one synchronize at the end), mfu =
+         tflops_per_chip / peak, train.memory.params_bytes the parameters'
+         bytes, the recorded peak torch.cuda.max_memory_allocated(), one
+         profile whose trace holds 64/32/32 K1/K2/K3 launches a step,
+         goodput.interval and the data.* records; (b) bench_1b as 5b with
+         timed_update: optimizer_update_ms on every record, the
+         parameters after 3 steps bit for bit the unsplit step's; (c)
+         Ulysses: ulysses_attention on LocalRing(2) and (4) against
+         K1-K3 at bench_1b's heads and S 8192, bench_1b trained at 8k
+         through Ulysses (K1 128, K2/K3 64 launches a step, step 0 within
+         5e-3 of the K1 model's loss) beside the ring's step in turns, and
+         the Llama-3-8B 8k prefill through it beside the ring and K1.
 
 Every phase asserts; the script exits non-zero on the first failure, when
 no CUDA device is present, or when the port's package is missing. Its last
@@ -161,10 +180,13 @@ H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
 
 
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
 ROWS = {}  # the last JSON row each phase (or phase and variant) logged
 # the numbers a summary line shows first
-HEADLINES = ("token_identical", "ttft_p50_s", "ttft_p99_s",
+HEADLINES = ("records_vs_clock", "median_step_ms", "median_step_ms_9c",
+             "input_stall_ms", "input_stall_share", "update_ms",
+             "ring_step_ms", "ring_forward_ms", "k1_forward_ms",
+             "token_identical", "ttft_p50_s", "ttft_p99_s",
              "server_ttft_p50_ms", "server_ttft_p99_ms",
              "device_busy_share", "device_ops_per_step",
              "launch_calls_per_step", "loop_thread_cpu_share",
@@ -2768,6 +2790,483 @@ def phase10b_serve_8b(torch, llama, L, slot_result=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training as users run it (the streamed corpus, the train.step
+# telemetry and its profiler window, the split update, Ulysses)
+# ---------------------------------------------------------------------------
+
+# the data keys a train.step record may carry (tests/schema_validate.py
+# TRAIN_STEP_DATA_SCHEMA), and those every 11a step carries
+TRAIN_STEP_KEYS = {"tokens_per_sec", "tflops_per_chip", "mfu", "compile",
+                   "input_stall_ms", "optimizer_update_ms",
+                   "transfer_stall_ms"}
+TRAIN_STEP_RATES = {"tokens_per_sec", "tflops_per_chip", "mfu"}
+
+
+def kernel_group(name):
+    """The KERNEL_GROUPS bucket of a kernel's name, or None."""
+    low = name.lower()
+    return next((g for g, keys in KERNEL_GROUPS
+                 if any(k in low for k in keys)), None)
+
+
+def trace_kernel_counts(fds, path):
+    """Launches by kernel bucket in a profile artifact's Chrome trace (the
+    zip ProfileTrigger saved)."""
+    import zipfile
+
+    with zipfile.ZipFile(fds.storage.full_uri(path)) as zf:
+        events = json.loads(zf.read(zf.namelist()[0]))["traceEvents"]
+    counts = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            group = kernel_group(ev.get("name", ""))
+            if group is not None:
+                counts[group] = counts.get(group, 0) + 1
+    return counts
+
+
+def _step_records(records):
+    steps = [r for r in records
+             if r["name"] == "train.step" and r["type"] == "timer"]
+    return sorted(steps, key=lambda r: r["step_num"])
+
+
+def phase11a_stream_telemetry(torch, llama, L, training, tmp_root):
+    """Llama-3-8B uncut in bf16 on memory_efficient_optimizer at tokens
+    [4, 2049] for 8 steps, as a user's flow step runs it: a seeded corpus
+    built with build_corpus into a LocalFlowDataStore (5 shards of 8
+    windows and a short tail), streamed by StreamingTokenBatches through
+    prefetch onto the card; make_trainer(telemetry=...) recording into a
+    FlightRecorder on the same datastore; TPUFLOW_PROFILE_STEPS=4:6. The
+    records are held against an independent clock (CUDA events around
+    each call, one synchronize at the end) and the profile's kernels
+    counted."""
+    import numpy as np
+
+    from metaflow_tpu_torch import data as data_mod
+    from metaflow_tpu_torch import progress, telemetry
+    from metaflow_tpu_torch.datastore import LocalFlowDataStore
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    B, S, steps = 4, 2048, 8
+    W = S + 1
+    fds = LocalFlowDataStore("ChipSmoke", tmp_root)
+    tokens = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, 40 * W + 100).astype(np.int32)
+    t0 = time.perf_counter()
+    manifest = data_mod.build_corpus(fds, "corpus", tokens,
+                                     shard_tokens=8 * W)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    params_bytes = _bytes(params["layers"].values()) + _bytes(
+        params[k] for k in ("embed", "final_norm", "lm_head"))
+    fpt = training.flops_per_token_dense(n_params, cfg.n_layers, cfg.dim, S)
+    recorder = telemetry.init_recorder(fds, "r1", "train", "0")
+    progress.set_task("ChipSmoke", "r1", "train", "0", root=tmp_root)
+    previous = os.environ.get("TPUFLOW_PROFILE_STEPS")
+    os.environ["TPUFLOW_PROFILE_STEPS"] = "4:6"
+    try:
+        state, step = training.make_trainer(
+            cfg, llama, optimizer=training.memory_efficient_optimizer(
+                warmup_steps=1, total_steps=10), params=params,
+            telemetry={"tokens_per_step": B * S,
+                       "flops_per_step": fpt * B * S, "memory_every": 2})
+        del params
+        stream = data_mod.StreamingTokenBatches(fds, "corpus", B, S,
+                                                seed=18)
+        batches = training.prefetch(iter(stream), depth=2, device="cuda")
+        # the losses land in one buffer: a loss tensor kept a step would
+        # raise the allocator's peak after the last gauge reads it
+        losses = torch.empty(steps, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        L.reset_launch_counts()
+        clock, launches = [], []
+        for i in range(steps):
+            batch = next(batches)
+            before = dict(L.LAUNCHES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            clock.append((start, end))
+            losses[i] = m["loss"]
+            launches.append({k: L.LAUNCHES[k] - before[k]
+                             for k in L.LAUNCHES})
+            del m
+        batches.close()
+        tel = step.telemetry
+        tel.close()  # the one synchronize, then the records of the rest
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        report = tel.report()
+        telemetry.close_recorder()
+        beat = progress.read_progress(tmp_root, "ChipSmoke", "r1", "train",
+                                      "0")
+    finally:
+        progress.clear_task()
+        if previous is None:
+            os.environ.pop("TPUFLOW_PROFILE_STEPS", None)
+        else:
+            os.environ["TPUFLOW_PROFILE_STEPS"] = previous
+        if telemetry.current_recorder() is recorder:
+            telemetry.close_recorder()
+    records = telemetry.read_run_records(fds, "r1")
+    step_recs = _step_records(records)
+    clock_ms = [s.elapsed_time(e) for s, e in clock]
+    steady = [r["step_num"] for r in step_recs
+              if not r.get("data", {}).get("compile")]
+    clock_step_ms = statistics.mean(clock_ms[i] for i in steady)
+    clock_tps = B * S / clock_step_ms * 1e3
+    profiles = telemetry.list_run_profiles(fds, "r1")
+    window = trace_kernel_counts(fds, profiles[0]) if profiles else {}
+    stalls = [r["data"]["input_stall_ms"] for r in step_recs
+              if "input_stall_ms" in r.get("data", {})]
+    names = {r["name"] for r in records}
+    peak = training.peak_tflops(torch.cuda.get_device_name(0))
+    mem = {r["name"]: r["value"] for r in records
+           if r["name"].startswith("train.memory.")}
+    losses = losses.tolist()
+    record_ms = [r["ms"] for r in step_recs]
+    result = {
+        "phase": "11a", "tokens": [B, W], "steps": steps,
+        # outside the first step (allocator and library warm-up) and the
+        # profile window's stop (its trace export lands in step 5)
+        "median_step_ms": statistics.median(
+            ms for i, ms in enumerate(record_ms) if i not in (0, 5)),
+        "median_step_ms_9c": ROWS.get("9c", {}).get("step_ms"),
+        "corpus_shards": manifest["n_shards"],
+        "corpus_tokens": manifest["total_tokens"], "corpus_build_s": build_s,
+        "step_ms": report["mean_step_ms"],
+        "tokens_per_s": report["tokens_per_sec"], "mfu": report["mfu"],
+        "clock_tokens_per_s": clock_tps, "clock_step_ms": clock_step_ms,
+        "records_vs_clock": report["tokens_per_sec"] / clock_tps - 1,
+        "input_stall_ms": statistics.mean(stalls) if stalls else None,
+        "input_stall_share": (statistics.mean(stalls) / report["mean_step_ms"]
+                              if stalls else None),
+        "peak_mem_gb": peak_bytes / 1e9,
+        "recorded_peak_gb": report.get("device_memory_peak_bytes", 0) / 1e9,
+        "params_gb": params_bytes / 1e9,
+        "window_launches": window, "profiles": len(profiles),
+        "steady_steps": len(steady), "losses": losses,
+        "record_ms": record_ms, "clock_ms": clock_ms,
+        "input_stalls_ms": stalls,
+        "final_beat": beat and {k: beat[k] for k in ("step_num", "done",
+                                                     "phase")},
+        "report": report}
+    log_row(result)
+    log("phase 11a: %.1f ms a step, median %.1f (9c in this call: %s), "
+        "%.0f tokens/s from the records against %.0f by CUDA events "
+        "(%+.2f %%), MFU %.4f, input stall %s ms a step, peak %.2f GB; "
+        "profile window %s"
+        % (result["step_ms"], result["median_step_ms"],
+           result["median_step_ms_9c"], result["tokens_per_s"],
+           clock_tps, 100 * result["records_vs_clock"], result["mfu"],
+           result["input_stall_ms"], result["peak_mem_gb"], window))
+    failures = []
+    if [r["step_num"] for r in step_recs] != list(range(steps)):
+        failures.append("train.step records for steps %s"
+                        % [r["step_num"] for r in step_recs])
+    for r in step_recs:
+        keys = set(r.get("data", {}))
+        if not keys <= TRAIN_STEP_KEYS or not TRAIN_STEP_RATES <= keys:
+            failures.append("step %d's record carries %s"
+                            % (r["step_num"], sorted(keys)))
+        elif abs(r["data"]["mfu"] - r["data"]["tflops_per_chip"] / peak) \
+                > 1.01e-4:
+            failures.append("step %d: mfu %s is not tflops %s / %s"
+                            % (r["step_num"], r["data"]["mfu"],
+                               r["data"]["tflops_per_chip"], peak))
+    if len(stalls) != steps - 1:
+        failures.append("%d input stalls for %d steps" % (len(stalls), steps))
+    if abs(result["records_vs_clock"]) > 0.03:
+        failures.append("the records' tokens/s is off the CUDA-event clock")
+    if mem.get("train.memory.params_bytes") != params_bytes or \
+            abs(params_bytes / 1e9 - 16.06) > 0.01:
+        failures.append("train.memory.params_bytes %s against %d"
+                        % (mem.get("train.memory.params_bytes"),
+                           params_bytes))
+    if report.get("device_memory_peak_bytes") != peak_bytes:
+        failures.append("recorded peak %s against max_memory_allocated %d"
+                        % (report.get("device_memory_peak_bytes"),
+                           peak_bytes))
+    want = {"K1 flash_fwd": 2 * 2 * cfg.n_layers,
+            "K2 flash_bwd_dq": 2 * cfg.n_layers,
+            "K3 flash_bwd_dkv": 2 * cfg.n_layers}
+    if len(profiles) != 1 or {k: window.get(k) for k in want} != want:
+        failures.append("%d profiles, window launches %s, expected %s over "
+                        "steps 4-5" % (len(profiles), window, want))
+    missing = {"goodput.interval", "profile.captured", "data.shard_fetch",
+               "data.batch_wait", "data.readahead_occupancy",
+               "train.summary.tokens_per_sec"} - names
+    if missing:
+        failures.append("no %s records" % sorted(missing))
+    per_step = {"flash_fwd": 2 * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers, "flash_block_fwd": 0,
+                "gmm_fwd": 0, "gmm_dw": 0}
+    if any(c != per_step for c in launches):
+        failures.append("launches a step %s" % launches)
+    if not all(x == x and abs(x) < 1e4 for x in losses):
+        failures.append("non-finite losses %s" % losses)
+    if not beat or not beat["done"] or beat["step_num"] != steps:
+        failures.append("final progress beat %s" % beat)
+    if failures:
+        raise AssertionError("phase 11a: " + "; ".join(failures))
+    del state, step
+    _free(torch)
+    return result
+
+
+def phase11b_timed_update(torch, llama, training, tmp_root):
+    """bench_1b uncut in bf16 on AdamW at tokens [8, 2049] (5b's
+    configuration): 3 steps of the unsplit step, then 3 of the split one
+    (make_trainer(timed_update=True), with telemetry) from the same seeded
+    weights and batch. Every split step's record carries
+    optimizer_update_ms, and the parameters after 3 steps equal the
+    unsplit ones bit for bit."""
+    from metaflow_tpu_torch import telemetry
+    from metaflow_tpu_torch.datastore import LocalFlowDataStore
+
+    cfg = llama.LlamaConfig.bench_1b()
+    B, S = 8, 2048
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S + 1),
+        generator=torch.Generator(device="cuda").manual_seed(19),
+        device="cuda")}
+    fds = LocalFlowDataStore("ChipSmoke", tmp_root)
+    params = {}
+    for timed in (False, True):
+        init = llama.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(6))
+        n_params = llama.num_params(init)
+        kw = {}
+        if timed:
+            telemetry.init_recorder(fds, "r2", "train", "0")
+            kw = {"timed_update": True, "telemetry": {
+                "tokens_per_step": B * S,
+                "flops_per_step": B * S * training.flops_per_token_dense(
+                    n_params, cfg.n_layers, cfg.dim, S)}}
+        state, step = training.make_trainer(
+            cfg, llama, optimizer=training.default_optimizer(
+                warmup_steps=1, total_steps=10), params=init, **kw)
+        del init
+        for _ in range(3):
+            state, _m = step(state, batch)
+        if timed:
+            step.telemetry.close()
+            telemetry.close_recorder()
+        torch.cuda.synchronize()
+        params[timed] = state["params"]
+        del state, step
+    records = _step_records(telemetry.read_run_records(fds, "r2"))
+    identical = all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            training.train_step.leaves(params[False]),
+            training.train_step.leaves(params[True])))
+    update_ms = [r["data"].get("optimizer_update_ms") for r in records]
+    step_ms = [r["ms"] for r in records]
+    result = {"phase": "11b", "tokens": [B, S + 1],
+              "update_ms": (statistics.mean(update_ms[1:])
+                            if None not in update_ms else None),
+              "step_ms": statistics.mean(step_ms[1:]),
+              "records_update_ms": update_ms, "records_step_ms": step_ms,
+              "params_bit_identical": identical}
+    log_row(result)
+    log("phase 11b: the update %s ms of a %.1f ms split step; parameters "
+        "bit identical to the unsplit step's: %s"
+        % (result["update_ms"], result["step_ms"], identical))
+    del params
+    _free(torch)
+    if len(records) != 3 or None in update_ms or not identical:
+        raise AssertionError("phase 11b: %s" % json.dumps(result))
+    return result
+
+
+def phase11c_ulysses(torch, llama, A, R, L, training):
+    """Ulysses on the card: (1) ulysses_attention on LocalRing(2) and (4)
+    against flash_attention (K1-K3), output and gradients, bf16, bench_1b's
+    heads (16/8, D 128) at S 8192, under 8b's row limits; (2) bench_1b in
+    bf16 at 8k context (tokens [2, 8193], attention_impl="ulysses",
+    LocalRing(4)), 5 AdamW steps, each launching K1 2·L·4, K2 and K3 L·4
+    times and K4 never, step 0 within 5e-3 of the K1 model's loss, the
+    ring's step (8d) on the same state timed in turns; (3) the Llama-3-8B
+    forward on tokens [1, 8192] through Ulysses beside the ring and K1."""
+    U = importlib.import_module("metaflow_tpu_torch.ops.ulysses_attention")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    B, S, H, KV, D = 2, 8192, 16, 8, 128
+    for n in (2, 4):
+        leaves = [torch.randn(B, S, h, D, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for h in (H, KV, KV)]
+        g = torch.randn(B, S, H, D, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        L.reset_launch_counts()
+        got = _grads(torch, lambda a, b, c: U.ulysses_attention(
+            a, b, c, R.LocalRing(n), causal=True), leaves, g)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in L.LAUNCHES.items() if v}
+        want = _grads(torch, lambda a, b, c: A.flash_attention(
+            a, b, c, causal=True), leaves, g)
+        torch.cuda.synchronize()
+        row = {"phase": "11c", "ulysses": n, "shape": [B, S, H, KV, D],
+               "launches": launches}
+        ok = all(bool(torch.isfinite(t.float()).all()) for t in got)
+        for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            row[name] = A.flash_out_error(a, b)
+            ok = ok and row[name] <= (A.FLASH_BF16_ROW_LIMIT if name == "out"
+                                      else A.FLASH_BWD_ROW_LIMIT)
+        ok = ok and launches == {"flash_fwd": n, "flash_bwd_dq": n,
+                                 "flash_bwd_dkv": n}
+        log_row(row, "11c.kernels%d" % n)
+        if not ok:
+            raise AssertionError("Ulysses disagrees with the flash path: %s"
+                                 % json.dumps(row))
+        del leaves, g, got, want
+    _free(torch)
+    train = _ulysses_train(torch, llama, R, L, training)
+    _free(torch)
+    return train, _ulysses_prefill(torch, llama, R, L)
+
+
+def _ulysses_train(torch, llama, R, L, training):
+    S, B, n = 8192, 2, 4
+    cfg = llama.LlamaConfig.bench_1b(attention_impl="ulysses",
+                                     max_seq_len=S)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    params = llama.init_params(cfg, gen)
+    n_params = llama.num_params(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                     generator=gen, device="cuda")}
+    with torch.no_grad():  # the same model's step-0 loss through K1
+        k1_loss = llama.loss_fn(params, batch, dataclasses.replace(
+            cfg, attention_impl="auto")).item()
+    mesh = R.LocalRing(n)
+    opt = training.default_optimizer(warmup_steps=1, total_steps=20)
+    state, uly_step = training.make_trainer(cfg, llama, optimizer=opt,
+                                            params=params, mesh=mesh)
+    del params
+    # the ring's step (8d) on the same state and optimizer
+    ring_step = training.make_train_step(
+        dataclasses.replace(cfg, attention_impl="ring"), llama,
+        optimizer=opt, mesh=mesh)
+    steps = {"ulysses": uly_step, "ring": ring_step}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"ulysses": [], "ring": []}
+    # step 0 of each, then in turns: U R R U U R R U
+    for impl in ["ulysses", "ring"] + ["ulysses", "ring", "ring",
+                                       "ulysses"] * 2:
+        before = dict(L.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = steps[impl](state, batch)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        runs[impl].append({"ms": (time.perf_counter() - t) * 1e3,
+                           "loss": loss,
+                           "launches": {k: L.LAUNCHES[k] - before[k]
+                                        for k in L.LAUNCHES}})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rates = {impl: _rates(torch, training, n_params, cfg, B, S,
+                          statistics.median(r["ms"] for r in rs[1:]))
+             for impl, rs in runs.items()}
+    n_l = cfg.n_layers
+    want = {"ulysses": {"flash_fwd": 2 * n_l * n, "flash_bwd_dq": n_l * n,
+                        "flash_bwd_dkv": n_l * n, "flash_block_fwd": 0,
+                        "gmm_fwd": 0, "gmm_dw": 0},
+            "ring": {"flash_fwd": 0, "flash_bwd_dq": 10 * n_l,
+                     "flash_bwd_dkv": 10 * n_l,
+                     "flash_block_fwd": 2 * 10 * n_l, "gmm_fwd": 0,
+                     "gmm_dw": 0}}
+    result = {"phase": "11c", "tokens": [B, S + 1], "ulysses": n,
+              "step_ms": rates["ulysses"]["step_ms"],
+              "tokens_per_s": rates["ulysses"]["tokens_per_s"],
+              "mfu": rates["ulysses"]["mfu"],
+              "ring_step_ms": rates["ring"]["step_ms"],
+              "ring_mfu": rates["ring"]["mfu"], "peak_mem_gb": peak_gb,
+              "k1_step0_loss": k1_loss,
+              "step0_loss": runs["ulysses"][0]["loss"],
+              "launches": runs["ulysses"][-1]["launches"],
+              "ulysses_ms": [r["ms"] for r in runs["ulysses"]],
+              "ring_ms": [r["ms"] for r in runs["ring"]],
+              "losses": [r["loss"] for r in runs["ulysses"]]}
+    log_row(result, "11c.train")
+    log("phase 11c: bench_1b 8k through Ulysses %.1f ms a step (MFU %.4f) "
+        "against the ring's %.1f ms in turns; peak %.2f GB"
+        % (result["step_ms"], result["mfu"], result["ring_step_ms"],
+           peak_gb))
+    bad = [(impl, i) for impl, rs in runs.items()
+           for i, r in enumerate(rs) if r["launches"] != want[impl]]
+    losses = [r["loss"] for rs in runs.values() for r in rs]
+    if bad or not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError("phase 11c: launches off %s (expected %s) or "
+                             "non-finite losses %s" % (bad, want, losses))
+    if abs(runs["ulysses"][0]["loss"] - k1_loss) > 5e-3:
+        raise AssertionError("step 0's Ulysses loss %.6f is not within 5e-3 "
+                             "of the K1 model's %.6f"
+                             % (runs["ulysses"][0]["loss"], k1_loss))
+    return result
+
+
+def _ulysses_prefill(torch, llama, R, L):
+    cfg = llama.LlamaConfig.llama3_8b(attention_impl="ulysses")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen,
+                           device="cuda")
+    mesh = R.LocalRing(4)
+
+    def run(impl, ring):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = llama.forward(params, tokens, c, mesh=ring)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t) * 1e3
+
+    def compare(a, b):
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        return agree, rel
+
+    with torch.no_grad():
+        L.reset_launch_counts()
+        uly_logits, _ = run("ulysses", mesh)
+        launches = {k: v for k, v in L.LAUNCHES.items() if v}
+        _, uly_ms = run("ulysses", mesh)
+        _, ring_ms = run("ring", mesh)
+        k1_logits, k1_ms = run("auto", None)
+        agree, rel = compare(uly_logits, k1_logits)
+        finite = bool(torch.isfinite(uly_logits).all())
+        del uly_logits
+        plain_logits, _ = run("xla", None)
+        floor_agree, floor_rel = compare(k1_logits, plain_logits)
+        del plain_logits, k1_logits
+    result = {"phase": "11c", "tokens": [1, 8192], "ulysses": 4,
+              "forward_ms": uly_ms, "tokens_per_s": 8192 / uly_ms * 1e3,
+              "ring_forward_ms": ring_ms, "k1_forward_ms": k1_ms,
+              "launches": launches,
+              "top1_agree_ulysses_vs_k1": agree,
+              "max_rel_logit_diff_ulysses_vs_k1": rel,
+              "top1_agree_k1_vs_plain": floor_agree,
+              "max_rel_logit_diff_k1_vs_plain": floor_rel}
+    log_row(result, "11c.prefill")
+    del params
+    _free(torch)
+    if launches != {"flash_fwd": 4 * cfg.n_layers} or not finite:
+        raise AssertionError("the 8k Ulysses prefill launched %s, expected "
+                             "K1 %d times" % (launches, 4 * cfg.n_layers))
+    if agree < floor_agree - 0.02 or rel > 2 * floor_rel:
+        raise AssertionError("Ulysses and K1 forwards disagree beyond the "
+                             "rounding floor: %s" % json.dumps(result))
+    return result
+
+
 def summary_lines(done, failed=None):
     """One compact line (at most 200 bytes) per logged phase row: its
     pass result and its headline numbers, printed at the end where the
@@ -2982,6 +3481,14 @@ def run_phases(torch, baseline_root, selected, done, current):
                                   "decode_tokens_per_s", "wall_s",
                                   "peak_mem_gb")})
         end("10", "10b")
+    if begin("11"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            phase11a_stream_telemetry(torch, llama, L, training, tmp)
+            log("phase 11a done at %.1fs" % (time.perf_counter() - start))
+            phase11b_timed_update(torch, llama, training, tmp)
+            log("phase 11b done at %.1fs" % (time.perf_counter() - start))
+        phase11c_ulysses(torch, llama, A, R, L, training)
+        end("11", "11c")
     current[0] = "report"
 
     # the kernel report needs every phase that times or counts a kernel;

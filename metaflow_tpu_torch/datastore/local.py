@@ -1,7 +1,8 @@
 """A flow datastore on a local directory, with the interface the port's
-checkpoint manager speaks (training/checkpoint.py): `.flow_name`,
-`.storage` and `.ca_store`. A flow step hands the manager the run's own
-FlowDataStore instead; this one serves runs outside a flow.
+checkpoint manager (training/checkpoint.py), flight recorder
+(telemetry.py) and streamed corpus (data/) speak: `.flow_name`,
+`.storage`, `.ca_store` and `save_data`. A flow step hands them the
+run's own FlowDataStore instead; this one serves runs outside a flow.
 
 The layout is the JAX package's local datastore's: files under
 <root>/<path>, blobs in a content-addressed store under
@@ -11,10 +12,13 @@ FlowDataStore over the same root reads what the other wrote.
 """
 
 import contextlib
+import fcntl
 import gzip
 import hashlib
+import json
 import os
 import tempfile
+import time
 
 
 class LocalStorage:
@@ -85,8 +89,29 @@ class ContentAddressedStore:
         self._prefix = prefix
         self._storage = storage
 
+    @property
+    def storage(self):
+        return self._storage
+
+    @property
+    def blob_cache(self):
+        """No local blob cache: the blobs already live on local disk."""
+        return None
+
     def _path(self, key):
         return self._storage.path_join(self._prefix, key[:2], key)
+
+    def blob_path(self, key):
+        """Storage path of a content key."""
+        return self._path(key)
+
+    def _unpack(self, packed):
+        fmt, payload = packed[:1], packed[1:]
+        if fmt == self.FMT_GZIP:
+            return gzip.decompress(payload)
+        if fmt != self.FMT_RAW:
+            raise ValueError("blob has unknown tag %r" % fmt)
+        return payload
 
     def save_blobs(self, blob_iter, raw=False, len_hint=0, cacheable=True):
         """Store each blob (raw: checkpoint blobs are tensors, which do
@@ -116,20 +141,56 @@ class ContentAddressedStore:
                                    % paths[path])
                 with open(local, "rb") as f:
                     packed = f.read()
-                fmt, payload = packed[:1], packed[1:]
-                if fmt == self.FMT_GZIP:
-                    payload = gzip.decompress(payload)
-                elif fmt != self.FMT_RAW:
+                try:
+                    payload = self._unpack(packed)
+                except ValueError:
                     raise ValueError("blob %s has unknown tag %r"
-                                     % (paths[path], fmt))
+                                     % (paths[path], packed[:1]))
                 yield paths[path], payload
 
 
 class LocalFlowDataStore:
-    """`flow_name`, `storage` and `ca_store` of one flow under `root`."""
+    """`flow_name`, `storage`, `ca_store` and `save_data` of one flow
+    under `root`."""
 
     def __init__(self, flow_name, root):
         self.flow_name = flow_name
         self.storage = LocalStorage(root)
         self.ca_store = ContentAddressedStore(
             self.storage.path_join(flow_name, "data"), self.storage)
+
+    def save_data(self, data_iter):
+        """Save raw byte blobs (e.g. corpus shards); returns [(uri, key)]
+        in order. The keys are recorded in the flow's package registry
+        (`<flow>/_packages.json`, key -> newest registration time), so
+        the JAX package's gc keeps them live."""
+        results = self.ca_store.save_blobs(data_iter, raw=True)
+        self._register_data_keys([key for _uri, key in results])
+        return results
+
+    def _registry_path(self):
+        return self.storage.path_join(self.flow_name, "_packages.json")
+
+    def _register_data_keys(self, keys):
+        if not keys:
+            return
+        path = self.storage.full_uri(self._registry_path())
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".lock", "a+") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            registry = {}
+            with self.storage.load_bytes([self._registry_path()]) as loaded:
+                for _p, local, _m in loaded:
+                    if local is not None:
+                        with open(local) as f:
+                            registry = json.load(f)
+            if isinstance(registry, list):  # the pre-timestamp format
+                registry = {k: 0 for k in registry}
+            now = time.time()
+            # max(): a stamp never moves backwards
+            for key in keys:
+                registry[key] = max(now, registry.get(key, 0))
+            self.storage.save_bytes(
+                [(self._registry_path(),
+                  json.dumps(registry, sort_keys=True).encode("utf-8"))],
+                overwrite=True)

@@ -24,6 +24,20 @@ KNOBS = {
     "TPUFLOW_DECODE_CHUNK": ("int", 256),
     # training
     "TPUFLOW_PEAK_TFLOPS": ("float", None),
+    # knobs whose subsystem the port has not yet: setting one raises
+    # (the chaos harness and the collective sanitizer, ROADMAP.md slice 5)
+    "TPUFLOW_CHAOS": ("str", ""),
+    "TPUFLOW_SANITIZE": ("bool", False),
+    # progress beats and the hang deadline (progress.py)
+    "TPUFLOW_PROGRESS_EVERY_S": ("float", 1.0),
+    "TPUFLOW_HANG_FLOOR_S": ("float", 60.0),
+    "TPUFLOW_HANG_DEADLINE_MULT": ("float", 8.0),
+    "TPUFLOW_HANG_COMPILE_GRACE_S": ("float", 600.0),
+    # datastore and the streamed corpus (data/)
+    "TPUFLOW_DATASTORE_SYSROOT_LOCAL": ("str", None),
+    "TPUFLOW_STORAGE_TIMEOUT_S": ("float", 0.0),
+    "TPUFLOW_DATA_READAHEAD_MB": ("float", 64.0),
+    "TPUFLOW_DATA_WORKERS": ("int", 8),
     # serving
     "TPUFLOW_PAGED": ("bool", False),
     "TPUFLOW_KV_PAGE_TOKENS": ("int", 16),
@@ -34,6 +48,9 @@ KNOBS = {
     # telemetry
     "TPUFLOW_TELEMETRY": ("bool", True),
     "TPUFLOW_TELEMETRY_FLUSH_EVERY": ("int", 512),
+    "TPUFLOW_PROFILE_STEPS": ("str", ""),
+    "TPUFLOW_PROFILE_REQUEST": ("str", ""),
+    "TPUFLOW_PROFILE_SIGNAL": ("bool", False),
     # tenancy
     "TPUFLOW_TENANT_WEIGHTS": ("str", ""),
     "TPUFLOW_TENANT_PRIORITIES": ("str", ""),

@@ -25,6 +25,7 @@ from ..ops.matmul import matmul_f32
 from ..ops.norms import rms_norm
 from ..ops.ring_attention import LocalRing, ring_attention
 from ..ops.rope import apply_rope, rope_frequencies
+from ..ops.ulysses_attention import ulysses_attention
 
 
 @dataclass(frozen=True)
@@ -179,14 +180,13 @@ def layer_params(params, i):
 
 
 def _sequence_attention(cfg, q, k, v, mesh):
-    """attention_impl 'ring' over the mesh's 'sequence' axis. The model
-    runs global arrays, so the mesh is a LocalRing: the shards of one
-    sequence on this device, as the JAX model's global arrays are sharded
-    only inside its attention."""
-    if cfg.attention_impl == "ulysses":
-        raise NotImplementedError(
-            "attention_impl='ulysses' (all-to-all sequence parallelism) is "
-            "not ported yet (ROADMAP.md, slice 3: Ulysses)")
+    """attention_impl 'ring' or 'ulysses' over the mesh's 'sequence' axis:
+    'ring' rotates KV blocks (ops/ring_attention.py), 'ulysses' re-shards
+    sequence to heads with all-to-alls and runs full-sequence attention
+    per head group (ops/ulysses_attention.py). The model runs global
+    arrays, so the mesh is a LocalRing: the shards of one sequence on this
+    device, as the JAX model's global arrays are sharded only inside its
+    attention."""
     if mesh is None or "sequence" not in getattr(mesh, "axis_names", ()):
         raise ValueError(
             "attention_impl=%r needs a mesh with a 'sequence' axis passed "
@@ -196,6 +196,8 @@ def _sequence_attention(cfg, q, k, v, mesh):
             "the model runs whole sequences; a ring of one shard per "
             "process (%r) needs positions and the loss per shard "
             "(ROADMAP.md, slice 5)" % (mesh,))
+    if cfg.attention_impl == "ulysses":
+        return ulysses_attention(q, k, v, mesh, causal=True)
     return ring_attention(q, k, v, mesh, causal=True)
 
 

@@ -4,6 +4,7 @@ from .attention import (attention, flash_attention, flash_block_bwd,
                         flash_block_fwd, reference_attention)
 from .gmm import gather_rows, gmm, make_group_layout, scatter_rows
 from .ring_attention import LocalRing, ProcessGroupRing, ring_attention
+from .ulysses_attention import ulysses_attention
 
 __all__ = [
     "rms_norm",
@@ -15,6 +16,7 @@ __all__ = [
     "flash_block_bwd",
     "flash_block_fwd",
     "ring_attention",
+    "ulysses_attention",
     "LocalRing",
     "ProcessGroupRing",
     "reference_attention",

@@ -26,16 +26,21 @@ mid-run loses at most the unflushed tail, never already-persisted parts.
 Env vars:
     TPUFLOW_TELEMETRY=0            disable the recorder entirely
     TPUFLOW_TELEMETRY_FLUSH_EVERY  buffer size before an auto-flush (512)
-
-The JAX package's on-demand profiler capture (ProfileTrigger) waits for
-the training-telemetry slice, where it becomes a torch.profiler window.
+    TPUFLOW_PROFILE_STEPS=A:B      capture a torch.profiler trace for train
+                                   steps [A, B) and upload it
+    TPUFLOW_PROFILE_REQUEST=path   touch this file (content: step count)
+                                   to trigger a capture on a live run
+    TPUFLOW_PROFILE_SIGNAL=1       SIGUSR2 triggers a capture too
 """
 
+import io
 import json
 import os
 import socket
+import sys
 import threading
 import time
+import zipfile
 from contextlib import contextmanager
 
 from . import knobs
@@ -287,6 +292,14 @@ def current_recorder():
 def close_recorder():
     global _current
     rec, _current = _current, None
+    # a capture window that never reached its stop step (loop ended
+    # early, telemetry=True user never called close()) must still land:
+    # stop + upload any in-flight capture before the final flush
+    for trigger in list(_live_triggers):
+        try:
+            trigger.stop()
+        except Exception:
+            pass
     if rec is not None:
         rec.close()
 
@@ -349,3 +362,219 @@ def read_run_records(flow_datastore, run_id):
                             continue
     records.sort(key=lambda r: r.get("ts", 0))
     return records
+
+
+def list_run_profiles(flow_datastore, run_id):
+    """Datastore paths of profiler trace artifacts captured for a run."""
+    storage = flow_datastore.storage
+    prefix = storage.path_join(
+        flow_datastore.flow_name, str(run_id), PROFILE_PREFIX)
+    return [p for p, is_file in storage.list_content([prefix]) if is_file]
+
+
+# ---------------------------------------------------------------------------
+# on-demand torch.profiler capture
+# ---------------------------------------------------------------------------
+
+
+# ProfileTriggers with an IN-FLIGHT capture: registered at _start, removed
+# at stop — close_recorder() drains them so a window that outlives the
+# train loop (or a telemetry=True user who never calls close()) still
+# stops the profiler and uploads the trace
+_live_triggers = set()
+
+PROFILE_TRACE_FILE = "trace.json"
+
+
+def _zip_dir(root):
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for dirpath, _dirs, files in os.walk(root):
+            for name in files:
+                full = os.path.join(dirpath, name)
+                zf.write(full, os.path.relpath(full, root))
+    return buf.getvalue()
+
+
+class ProfileTrigger(object):
+    """Step-window torch.profiler capture for a live training loop.
+
+    Call `on_step(step_num)` once per train step, from the thread that
+    runs the steps (the profiler starts and stops there: kineto complains
+    when it is started in another thread). Capture starts when any
+    trigger fires and stops `length` steps later; the Chrome trace
+    (`trace.json`) is zipped and uploaded to the run's datastore under
+    `_telemetry/profiles/`, with a `profile.captured` event linking it.
+    The window records CPU activity, and CUDA activity when `cuda` (the
+    steps run on the card; default: a card is present). Before it stops,
+    a CUDA window waits for the card, so the window's last kernels are in
+    the trace.
+
+    Triggers:
+      - env window: TPUFLOW_PROFILE_STEPS="start:stop" (absolute step
+        numbers, capture is [start, stop))
+      - file: the TPUFLOW_PROFILE_REQUEST path appears (its content, an
+        integer, is the capture length; default 5 steps). The file is
+        removed once the capture starts, so it can be re-touched.
+      - signal: SIGUSR2 when TPUFLOW_PROFILE_SIGNAL=1 (install via
+        install_signal_trigger()).
+    """
+
+    DEFAULT_LENGTH = 5
+
+    def __init__(self, recorder=None, steps=None, request_file=None,
+                 check_every=1.0, cuda=None):
+        self._recorder = recorder
+        spec = (steps if steps is not None
+                else knobs.get_str("TPUFLOW_PROFILE_STEPS"))
+        self._window = self._parse_window(spec)
+        self._request_file = request_file or knobs.get_str(
+            "TPUFLOW_PROFILE_REQUEST")
+        self._check_every = check_every
+        self._cuda = cuda
+        self._last_check = 0.0
+        self._signal_pending = [0]
+        self._active = None  # (start_step, stop_step, tmpdir, profiler)
+        if knobs.get_bool("TPUFLOW_PROFILE_SIGNAL"):
+            self.install_signal_trigger()
+
+    @staticmethod
+    def _parse_window(spec):
+        if not spec:
+            return None
+        try:
+            start, _, stop = spec.partition(":")
+            start, stop = int(start), int(stop)
+        except ValueError:
+            sys.stderr.write(
+                "telemetry: ignoring malformed TPUFLOW_PROFILE_STEPS=%r "
+                "(want start:stop)\n" % spec)
+            return None
+        if stop <= start:
+            return None
+        return (start, stop)
+
+    def install_signal_trigger(self, signum=None):
+        import signal as _signal
+
+        signum = signum or _signal.SIGUSR2
+        pending = self._signal_pending
+
+        def _on_signal(_s, _f):
+            pending[0] = self.DEFAULT_LENGTH
+
+        try:
+            _signal.signal(signum, _on_signal)
+        except ValueError:
+            pass  # not the main thread: signal trigger unavailable
+
+    def _poll_request_file(self):
+        if not self._request_file:
+            return 0
+        now = time.monotonic()
+        if now - self._last_check < self._check_every:
+            return 0
+        self._last_check = now
+        try:
+            with open(self._request_file) as f:
+                content = f.read().strip()
+            os.unlink(self._request_file)
+        except OSError:
+            return 0
+        try:
+            return max(1, int(content)) if content else self.DEFAULT_LENGTH
+        except ValueError:
+            return self.DEFAULT_LENGTH
+
+    def on_step(self, step_num):
+        """Drive the capture state machine; cheap when idle."""
+        if self._active is None:
+            length = 0
+            if self._window and step_num >= self._window[0]:
+                start, stop = self._window
+                self._window = None
+                if step_num < stop:
+                    length = stop - step_num
+            if not length and self._signal_pending[0]:
+                length, self._signal_pending[0] = self._signal_pending[0], 0
+            if not length:
+                length = self._poll_request_file()
+            if length:
+                self._start(step_num, step_num + length)
+        elif step_num >= self._active[1]:
+            self.stop(step_num)
+
+    def _wants_cuda(self):
+        import torch
+
+        if self._cuda is None:
+            self._cuda = torch.cuda.is_available()
+        return self._cuda
+
+    def _start(self, start_step, stop_step):
+        import shutil
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self._wants_cuda():
+            activities.append(ProfilerActivity.CUDA)
+        tmpdir = tempfile.mkdtemp(prefix="tpuflow_profile_")
+        prof = profile(activities=activities)
+        try:
+            prof.start()
+        except Exception as ex:
+            sys.stderr.write("telemetry: profiler start failed: %s\n" % ex)
+            shutil.rmtree(tmpdir, ignore_errors=True)
+            return
+        self._active = (start_step, stop_step, tmpdir, prof)
+        _live_triggers.add(self)
+        if self._recorder is not None:
+            self._recorder.event(
+                "profile.start",
+                data={"start_step": start_step, "stop_step": stop_step})
+
+    def stop(self, step_num=None):
+        """Stop an in-flight capture, upload the zipped trace, link it."""
+        if self._active is None:
+            return None
+        import shutil
+
+        import torch
+
+        start_step, stop_step, tmpdir, prof = self._active
+        self._active = None
+        _live_triggers.discard(self)
+        try:
+            if self._cuda:
+                torch.cuda.synchronize()
+            prof.stop()
+            prof.export_chrome_trace(
+                os.path.join(tmpdir, PROFILE_TRACE_FILE))
+        except Exception as ex:
+            sys.stderr.write("telemetry: profiler stop failed: %s\n" % ex)
+            shutil.rmtree(tmpdir, ignore_errors=True)
+            return None
+        payload = _zip_dir(tmpdir)
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        path = None
+        if self._recorder is not None:
+            name = "trace_%s_%s_a%d_s%d-%d.zip" % (
+                self._recorder.step_name, self._recorder.task_id,
+                self._recorder.attempt, start_step,
+                stop_step if step_num is None else step_num)
+            path = self._recorder.save_artifact(name, payload)
+            self._recorder.event(
+                "profile.captured",
+                data={"artifact": path, "start_step": start_step,
+                      "stop_step": stop_step, "bytes": len(payload)})
+        else:
+            # no run context: keep the trace on local disk
+            out = os.path.abspath("tpuflow_profile_s%d-%d.zip"
+                                  % (start_step, stop_step))
+            with open(out, "wb") as f:
+                f.write(payload)
+            sys.stderr.write("telemetry: profiler trace saved to %s\n" % out)
+            path = out
+        return path

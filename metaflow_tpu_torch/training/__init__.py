@@ -1,6 +1,13 @@
+from ..data import StreamingTokenBatches
 from .checkpoint import AsyncCheckpointManager, Checkpoint
-from .data import ResumableTokenBatches, prefetch, token_batches
-from .metrics import flops_per_token_dense, peak_tflops
+from .data import STATE_KEY, ResumableTokenBatches, prefetch, token_batches
+from .metrics import (
+    TrainStepTelemetry,
+    flops_per_token_dense,
+    hbm_gbps,
+    instrument_train_step,
+    peak_tflops,
+)
 from .train_step import (
     Adafactor,
     AdamW,
@@ -20,10 +27,15 @@ __all__ = [
     "AsyncCheckpointManager",
     "Checkpoint",
     "ResumableTokenBatches",
+    "STATE_KEY",
+    "StreamingTokenBatches",
+    "TrainStepTelemetry",
     "check_opt_state",
     "default_optimizer",
     "factored_dims",
     "flops_per_token_dense",
+    "hbm_gbps",
+    "instrument_train_step",
     "make_eval_step",
     "make_train_state",
     "make_train_step",

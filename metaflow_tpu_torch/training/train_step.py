@@ -18,11 +18,13 @@ order (sorted keys), so sums over leaves add in the same order.
 
 import functools
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import knobs
 from ..models.llama import resolve_device
 
 
@@ -518,12 +520,27 @@ def _with_mesh(loss_fn, mesh):
         params, batch, cfg, device=device, mesh=mesh)
 
 
+def _fence(device):
+    """Wait for the work enqueued on `device` (CPU work is done when its
+    call returns)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
-                    mesh=None):
+                    mesh=None, timed_update=False):
     """The train step: (state, batch) -> (state, {'loss', 'grad_norm'}),
     both 0-dim f32 tensors on the device. The step updates the state's
     parameters and moments in place and returns the same dict. `mesh`
     (e.g. a LocalRing for attention_impl='ring') goes to loss_fn.
+
+    timed_update: the JAX package's diagnostic split: the backward first,
+    then the optimizer update, with a fence (the device's work waited
+    for) at each side of the update, so `step.last_update_ms` holds the
+    update's time on each call. training/metrics.py carries it into the
+    step's telemetry record as `optimizer_update_ms`. The fences
+    serialise work the host would otherwise run ahead of, so never time
+    the step itself in this mode. The arithmetic is the unsplit step's.
 
     `optimizer` must be the one the state was built with; make_trainer
     shares one and checks it."""
@@ -538,21 +555,41 @@ def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
         loss = loss_fn(params, batch, cfg, device=device)
         loss.backward()
         grads = _map(lambda p: p.grad, params)
+        if timed_update:
+            _fence(device)
+            t0 = time.perf_counter()
         grad_norm = optimizer.update(params, grads, state["opt_state"])
+        if timed_update:
+            _fence(device)
+            step.last_update_ms = (time.perf_counter() - t0) * 1e3
         for _, p in leaves(params):
             p.grad = None
         state["step"] += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
+    if timed_update:
+        step.last_update_ms = None
     return step
 
 
 def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
-                 generator=None, device="cuda", mesh=None, checkpoint=None):
+                 generator=None, device="cuda", mesh=None, checkpoint=None,
+                 telemetry=None, timed_update=False):
     """One-stop builder: (state, train_step) sharing a SINGLE optimizer,
     with check_opt_state run on the built (or restored) state. Starts from
     `params` when given (see make_train_state); `mesh` goes to the step's
     loss_fn.
+
+    timed_update: the diagnostic split step reporting per-call
+    `optimizer_update_ms` through telemetry (see make_train_step).
+
+    telemetry: truthy wraps the returned step with
+    training.metrics.instrument_train_step so every call emits its
+    `train.step` record (+ tokens/sec and MFU when the kwargs below are
+    given) through the run's flight recorder. Pass True for defaults or a
+    dict of instrument_train_step kwargs, e.g.
+    ``telemetry={"tokens_per_step": batch * seq, "flops_per_step": ...}``;
+    the wrapper's TrainStepTelemetry is `step.telemetry`.
 
     checkpoint: an AsyncCheckpointManager (training/checkpoint.py). When it
     holds a complete checkpoint, the built state's tensors are overwritten
@@ -561,16 +598,26 @@ def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
     another optimizer is refused with the optimizer named. The resumed step
     and the saved `extra` (e.g. the data stream's resume stamp) are then
     `checkpoint.last_restored`."""
+    if knobs.get_bool("TPUFLOW_SANITIZE"):
+        raise NotImplementedError(
+            "TPUFLOW_SANITIZE is set, but the port has no collective "
+            "sanitizer yet (ROADMAP.md, slice 5: the sanitizer)")
     optimizer = optimizer or default_optimizer()
     state = make_train_state(cfg, model, optimizer=optimizer, params=params,
                              generator=generator, device=device)
     step = make_train_step(cfg, model, optimizer=optimizer, loss_fn=loss_fn,
-                           device=device, mesh=mesh)
+                           device=device, mesh=mesh,
+                           timed_update=timed_update)
     if checkpoint is not None:
         restored = checkpoint.restore(like=state)
         if restored is not None:
             state = restored.state
     check_opt_state(optimizer, state)
+    if telemetry:
+        from .metrics import instrument_train_step
+
+        kwargs = telemetry if isinstance(telemetry, dict) else {}
+        step = instrument_train_step(step, **kwargs)
     return state, step
 
 

@@ -366,7 +366,8 @@ def test_llama_ring_loss_and_grads_match_jax(ref, tiny, monkeypatch,
 def test_llama_ring_needs_a_local_ring(tiny):
     """Without a ring mesh the ring branch raises the JAX ValueError; a
     ring of one shard per process, whose positions and loss would be per
-    shard, and Ulysses raise NotImplementedError naming ROADMAP."""
+    shard, raises NotImplementedError naming ROADMAP, for the ring and
+    for Ulysses alike."""
     _, np_params, tokens = tiny
     pcfg = port_llama.LlamaConfig.tiny(attention_impl="ring")
     params = port_llama.from_jax_params(np_params, pcfg, device="cpu")
@@ -376,10 +377,9 @@ def test_llama_ring_needs_a_local_ring(tiny):
     pg_ring.rank, pg_ring.size = 0, 4
     with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 5"):
         port_llama.forward(params, tokens, pcfg, device="cpu", mesh=pg_ring)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, slice 5"):
         port_llama.forward(params, tokens, dataclasses.replace(
-            pcfg, attention_impl="ulysses"), device="cpu",
-            mesh=port_ring.LocalRing(4))
+            pcfg, attention_impl="ulysses"), device="cpu", mesh=pg_ring)
 
 
 def test_trainer_step_through_the_ring(tiny):
