@@ -130,7 +130,12 @@ Phase 10 serves through the whole stack users run, built by the port's
          SlotEngine figures beside them; a third pass of spec_k 0's
          traffic profiles decode steps 40-49 (device-busy time against
          wall time, device operations and launch calls per step, the loop
-         thread's CPU share) and cancels the rest. The engine's prefill and decode
+         thread's CPU share) and cancels the rest; where a greedy
+         request's spec_k 3 tokens part from its spec_k 0 tokens, the
+         first differing position's top-2 logit gap, the gap between the
+         two chosen tokens and the K1-vs-plain logit difference there are
+         printed, and a chosen gap over that difference (no bf16 near
+         tie) fails the phase. The engine's prefill and decode
          launch no kernel (the JAX engine reaches no Pallas kernel
          either); their launch counts are printed.
 Phase 11 trains as a user's flow step does: (a) Llama-3-8B uncut in bf16
@@ -153,6 +158,26 @@ Phase 11 trains as a user's flow step does: (a) Llama-3-8B uncut in bf16
          5e-3 of the K1 model's loss) beside the ring's step in turns, and
          the Llama-3-8B 8k prefill through it beside the ring and K1.
 
+Phase 12 runs a user's flow on the card through the port's own command
+         line and flow layer: (a) writes train_flow.py into a temporary
+         directory (its free bytes printed) and runs `python train_flow.py
+         run` as a subprocess with TPUFLOW_DATASTORE_SYSROOT_LOCAL there:
+         start -> train (@gpu(require_gpu=True) @checkpoint) -> end, where
+         train builds Llama-3-8B uncut on memory_efficient_optimizer with
+         phase 9c's seeds, takes 3 steps on tokens [4, 2049], records its
+         losses, current.gpu's card, its K1/K2/K3 launches a step and a
+         digest of every parameter's bytes, and saves the parameters with
+         current.checkpoint (16.06 GB); the run is read back through the
+         port's client: successful, finite losses, the H100, 64/32/32
+         launches a step; (b) `python -m metaflow_tpu_torch serve TrainFlow
+         --paged --spec-k 3` as a subprocess on a free port: /healthz,
+         8 requests (prompts of 17-2000 tokens, 64 new tokens, 4 streamed)
+         all 200 and whole, SIGTERM, a drained exit 0; then
+         load_run_checkpoint("TrainFlow") here, whose parameters' digest
+         must be the trained ones'. Prints the run's wall seconds, the
+         median step ms beside 9c's, save seconds and bytes, restore
+         seconds, load-to-ready seconds, client TTFT p50 and decode tok/s.
+
 Every phase asserts; the script exits non-zero on the first failure, when
 no CUDA device is present, or when the port's package is missing. Its last
 lines are the kernel report, one SUMMARY line per phase (its pass result
@@ -167,6 +192,7 @@ import gc
 import importlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -180,7 +206,8 @@ H100_F32_FLOPS = 67e12        # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12    # HBM3
 
 
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
+              "12")
 ROWS = {}  # the last JSON row each phase (or phase and variant) logged
 # the numbers a summary line shows first
 HEADLINES = ("records_vs_clock", "median_step_ms", "median_step_ms_9c",
@@ -2485,6 +2512,36 @@ def top2_gap(torch, llama, params, cfg, context):
     return (top[0] - top[1]).item()
 
 
+def bf16_divergence(torch, llama, params, cfg, context, a, b):
+    """Where two greedy runs of a bf16 model chose tokens `a` and `b` after
+    `context`: the next-token logits' top-2 gap and the gap between the
+    two chosen tokens, both from the plain-attention forward, beside the
+    largest difference between the K1 forward's logits and the plain
+    forward's at that position, the size of bf16's own rounding there.
+    A chosen gap within that difference is a near tie that bf16 rounding
+    can decide either way. The context is padded on the right to K1's
+    block contract; under causal attention the padding leaves the logits
+    at the context's last position as they are."""
+    A = importlib.import_module("metaflow_tpu_torch.ops.attention")
+    n = len(context)
+    padded = n
+    while not A.blocks_aligned(padded):
+        padded += 1
+    tokens = list(context) + [0] * (padded - n)
+    with torch.no_grad():
+        logits = {impl: llama.forward(
+            params, [tokens], dataclasses.replace(cfg, attention_impl=impl),
+            device=params["embed"].device)[0, n - 1].float()
+            for impl in ("xla", "flash")}
+    plain = logits["xla"]
+    top = torch.topk(plain, 2).values
+    chosen = abs((plain[a] - plain[b]).item())
+    noise = (logits["flash"] - plain).abs().max().item()
+    return {"top2_gap": (top[0] - top[1]).item(), "chosen_gap": chosen,
+            "kernel_vs_plain_max_diff": noise,
+            "near_tie": chosen <= noise}
+
+
 def compare_tokens(torch, llama, params, cfg, label, prompts, got, want,
                    tie_log):
     """Token identity, request by request. The one exception is a position
@@ -2778,12 +2835,35 @@ def phase10b_serve_8b(torch, llama, L, slot_result=None):
         _free(torch)
     greedy = [i for i, b in enumerate(bodies) if not b.get("temperature")]
     same = sum(runs[0][1][i] == runs[3][1][i] for i in greedy)
+    # where spec_k 3 and spec_k 0 part, the logits at the first differing
+    # token say whether it was a bf16 near tie
+    divergences = []
+    for i in greedy:
+        got, want = runs[3][1][i], runs[0][1][i]
+        if got == want:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        entry = dict({"request": i, "position": j, "spec3": got[j],
+                      "spec0": want[j]}, **bf16_divergence(
+            torch, llama, params, cfg, bodies[i]["tokens"] + want[:j],
+            got[j], want[j]))
+        log("phase 10b: greedy spec_k 3 and spec_k 0 part %s"
+            % json.dumps(entry))
+        if not entry["near_tie"]:
+            raise AssertionError(
+                "phase 10b: greedy request %d parts at token %d with a "
+                "chosen gap %.3g over bf16's rounding there (%.3g): not a "
+                "near tie" % (i, j, entry["chosen_gap"],
+                              entry["kernel_vs_plain_max_diff"]))
+        divergences.append(entry)
     result = {"phase": "10b", "params": n_params,
               "greedy_identical_share_spec3_vs_spec0": same / len(greedy),
+              "greedy_divergences": divergences,
               "spec0": runs[0][0], "spec3": runs[3][0],
               "slot_engine_3b": slot_result}
     log_row({"phase": "10b", "params": n_params,
              "greedy_identical_share_spec3_vs_spec0": same / len(greedy),
+             "greedy_divergences": divergences,
              "slot_engine_3b": slot_result})
     del params
     _free(torch)
@@ -3267,6 +3347,361 @@ def _ulysses_prefill(torch, llama, R, L):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: a user's flow on the card (python train_flow.py run: the flow
+# runtime, the datastore, @gpu, @checkpoint), then
+# `python -m metaflow_tpu_torch serve TrainFlow` from that run's checkpoint
+# ---------------------------------------------------------------------------
+
+def params_digest(params):
+    """sha256 over every parameter's tree path, dtype, shape and the
+    sha256 of its bytes, in sorted path order. The leaves are hashed on 8
+    threads (sha256 releases the interpreter lock), each copied from the
+    card to the host once."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    def paths(tree, prefix=()):
+        for key in sorted(tree):
+            if isinstance(tree[key], dict):
+                yield from paths(tree[key], prefix + (key,))
+            else:
+                yield prefix + (key,), tree[key]
+
+    def leaf(item):
+        path, value = item
+        t = value.detach().to("cpu").contiguous()
+        data = hashlib.sha256(memoryview(
+            t.reshape(-1).view(torch.uint8).numpy())).hexdigest()
+        return "%s %s %s %s" % ("/".join(path), t.dtype, tuple(t.shape),
+                                data)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        lines = list(pool.map(leaf, paths(params)))
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+# the user's flow file; PARAMS_DIGEST is replaced by params_digest's source
+TRAIN_FLOW = '''
+from metaflow_tpu_torch import FlowSpec, checkpoint, current, gpu, step
+
+PARAMS_DIGEST
+
+
+class TrainFlow(FlowSpec):
+    """Llama-3-8B uncut on the card: 3 steps on memory_efficient_optimizer
+    (phase 9c's seeds and batch), then a checkpoint to serve."""
+
+    @step
+    def start(self):
+        self.next(self.train)
+
+    @gpu(require_gpu=True)
+    @checkpoint
+    @step
+    def train(self):
+        import dataclasses
+        import os
+        import time
+
+        import torch
+
+        from metaflow_tpu_torch import training
+        from metaflow_tpu_torch.models import llama
+        from metaflow_tpu_torch.ops import launches
+
+        cfg = llama.LlamaConfig.llama3_8b()
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        params = llama.init_params(cfg, gen)
+        self.n_params = llama.num_params(params)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2049),
+                                         generator=gen, device="cuda")}
+        opt = training.memory_efficient_optimizer(warmup_steps=1,
+                                                  total_steps=10)
+        state, train_step = training.make_trainer(cfg, llama, optimizer=opt,
+                                                  params=params)
+        del params
+        self.losses, self.step_ms, self.launches = [], [], []
+        for _ in range(3):
+            launches.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            self.losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
+            self.launches.append(dict(launches.LAUNCHES))
+        self.peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        self.device_kind = current.gpu.device_kind
+        self.num_devices = current.gpu.num_devices
+        params = state["params"]
+        del state
+        t = time.perf_counter()
+        self.digest = params_digest(params)
+        self.digest_s = time.perf_counter() - t
+        t = time.perf_counter()
+        path = current.checkpoint.save(
+            {"params": params, "config": dataclasses.asdict(cfg),
+             "step": 2}, step=2)
+        self.save_s = time.perf_counter() - t
+        self.save_bytes = os.path.getsize(
+            os.path.join(path, "checkpoint.pytree"))
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
+if __name__ == "__main__":
+    TrainFlow()
+'''
+
+FLOW_LAUNCHES = {"flash_fwd": 64, "flash_bwd_dq": 32, "flash_bwd_dkv": 32,
+                 "flash_block_fwd": 0, "gmm_fwd": 0, "gmm_dw": 0}
+
+
+def _tail(path, n=60):
+    with open(path, errors="replace") as f:
+        return "".join(f.readlines()[-n:])
+
+
+@contextlib.contextmanager
+def _datastore_root(root):
+    """The flow datastore root for this process's client calls."""
+    old = os.environ.get("TPUFLOW_DATASTORE_SYSROOT_LOCAL")
+    os.environ["TPUFLOW_DATASTORE_SYSROOT_LOCAL"] = root
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["TPUFLOW_DATASTORE_SYSROOT_LOCAL"]
+        else:
+            os.environ["TPUFLOW_DATASTORE_SYSROOT_LOCAL"] = old
+
+
+def phase12a_flow_run(torch, tmp, env):
+    """`python train_flow.py run` in a subprocess; the run read back
+    through the port's client. Returns (run id, the train task's data)."""
+    import inspect
+
+    flow_file = os.path.join(tmp, "train_flow.py")
+    with open(flow_file, "w") as f:
+        f.write(TRAIN_FLOW.replace("PARAMS_DIGEST",
+                                   inspect.getsource(params_digest)))
+    out = os.path.join(tmp, "run.log")
+    t = time.perf_counter()
+    with open(out, "w") as f:
+        rc = subprocess.run([sys.executable, flow_file, "run"], cwd=tmp,
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            timeout=900).returncode
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError("phase 12a: train_flow.py run exited %d:\n%s"
+                             % (rc, _tail(out)))
+    from metaflow_tpu_torch import client
+
+    client.namespace(None)
+    run = client.Flow("TrainFlow").latest_run
+    if not run.successful:
+        raise AssertionError("phase 12a: run %s not successful:\n%s"
+                             % (run.id, _tail(out)))
+    data = run["train"].task.data
+    losses = list(data.losses)
+    if not all(x == x and abs(x) < 1e4 for x in losses):
+        raise AssertionError("phase 12a: non-finite losses %s" % losses)
+    kind = torch.cuda.get_device_name(0)
+    if data.device_kind != kind or "H100" not in data.device_kind or \
+            data.num_devices != torch.cuda.device_count():
+        raise AssertionError("phase 12a: current.gpu says %s x %r, the card "
+                             "is %r" % (data.num_devices, data.device_kind,
+                                        kind))
+    if any(dict(r) != FLOW_LAUNCHES for r in data.launches):
+        raise AssertionError("phase 12a: the train task's steps launched "
+                             "%s, expected %s each"
+                             % (data.launches, FLOW_LAUNCHES))
+    if abs(data.n_params - 8.03e9) > 0.01e9:
+        raise AssertionError("phase 12a: %d parameters" % data.n_params)
+    return run.id, wall, data
+
+
+def _wait_serving(proc, out, deadline_s):
+    """The port the server prints it listens on, and the seconds until
+    /healthz said ok."""
+    import http.client
+
+    t0 = time.perf_counter()
+    port = None
+    while time.perf_counter() - t0 < deadline_s:
+        if proc.poll() is not None:
+            raise AssertionError("phase 12b: the server exited %s:\n%s"
+                                 % (proc.returncode, _tail(out)))
+        if port is None:
+            with open(out, errors="replace") as f:
+                for line in f:
+                    if " on http://127.0.0.1:" in line:
+                        port = int(line.split("http://127.0.0.1:")[1]
+                                   .split()[0])
+        if port is not None:
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=10)
+                conn.request("GET", "/healthz")
+                resp = conn.getresponse()
+                body = json.loads(resp.read() or b"{}")
+                conn.close()
+                if resp.status == 200 and body.get("ok"):
+                    return port, time.perf_counter() - t0
+            except OSError:
+                pass
+        time.sleep(0.5)
+    raise AssertionError("phase 12b: no healthy server in %.0fs:\n%s"
+                         % (deadline_s, _tail(out)))
+
+
+def _get_stats(port):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT_S)
+    try:
+        conn.request("GET", "/v1/stats")
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def phase12b_serve_run(torch, tmp, env, vocab_size):
+    """`python -m metaflow_tpu_torch serve TrainFlow --paged --spec-k 3`
+    in a subprocess: 8 requests (prompts of 17-2000 tokens, 64 new
+    tokens, 4 streamed), then SIGTERM and a drained exit 0."""
+    import numpy as np
+
+    out = os.path.join(tmp, "serve.log")
+    cmd = [sys.executable, "-m", "metaflow_tpu_torch", "serve", "TrainFlow",
+           "--paged", "--spec-k", "3", "--port", "0"]
+    log("phase 12b: %s" % " ".join(cmd[1:]))
+    with open(out, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    try:
+        port, ready_s = _wait_serving(proc, out, 600)
+        rng = np.random.default_rng(120)
+        bodies = []
+        for i in range(8):
+            n = 17 if i == 0 else 2000 if i == 1 else \
+                int(rng.integers(17, 2001))
+            bodies.append({"tokens": rng.integers(0, vocab_size, n).tolist(),
+                           "max_new_tokens": 64, "stream": i % 2 == 1})
+        before = _get_stats(port)
+        t = time.perf_counter()
+        results = post_all(port, bodies)
+        wall = time.perf_counter() - t
+        after = _get_stats(port)
+        bad = [(i, r[0], r[1].get("reason"), r[1].get("error"))
+               for i, r in enumerate(results)
+               if r[0] != 200 or len(r[1].get("new_tokens") or ()) != 64]
+        if bad:
+            raise AssertionError("phase 12b: bad responses %s\n%s"
+                                 % (bad, _tail(out)))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=HTTP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    text = _tail(out, 400)
+    if rc != 0 or "drained" not in text:
+        raise AssertionError("phase 12b: after SIGTERM the server exited %s"
+                             " (drained: %s):\n%s"
+                             % (rc, "drained" in text, _tail(out)))
+    ttft = sorted(r[2] for r, b in zip(results, bodies) if b["stream"])
+    decode_s = after["goodput"]["serve_decode_s"] - \
+        before["goodput"]["serve_decode_s"]
+    decoded = sum(len(r[1]["new_tokens"]) - 1 for r in results)
+    return {"load_to_ready_s": ready_s, "requests": len(bodies),
+            "wall_s": wall, "ttft_stream_s": ttft,
+            "ttft_p50_s": ttft[len(ttft) // 2],
+            "decode_tokens": decoded, "decode_s": decode_s,
+            "decode_tokens_per_s": decoded / decode_s,
+            "server_ttft_p50_ms": after["p50_ttft_ms"],
+            "spec": after["speculative"], "exit_code": rc}
+
+
+def phase12_flow(torch, flagship=None):
+    """A user's flow run by its own command line on the card, then served
+    from its checkpoint, and the served weights held to the trained
+    ones."""
+    import shutil
+
+    from metaflow_tpu_torch.inference import load_run_checkpoint
+
+    _free(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flow_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log("phase 12: flow directory %s, %.1f GB free" % (tmp, free / 1e9))
+        if free < 40e9:
+            raise AssertionError("phase 12: %s has %.1f GB free; the "
+                                 "checkpoint and its copy need 40"
+                                 % (tmp, free / 1e9))
+        root = os.path.join(tmp, "tpuflow")
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   TPUFLOW_DATASTORE_SYSROOT_LOCAL=root)
+        with _datastore_root(root):
+            run_id, wall, data = phase12a_flow_run(torch, tmp, env)
+            base = flagship and statistics.median(
+                r["ms"] for r in flagship["steps"][3:])
+            median = statistics.median(data.step_ms[1:])
+            log("phase 12a: TrainFlow/%s succeeded in %.1fs of wall time; "
+                "%s; steps %s ms (median of steps 1-2 %.1f ms, phase 9c's "
+                "%s), losses %s, K1/K2/K3 launches a step %s, peak %.2f GB; "
+                "save %.1fs for %.3f GB, digest %.1fs"
+                % (run_id, wall, data.device_kind,
+                   ["%.1f" % x for x in data.step_ms], median,
+                   "%.1f ms" % base if base else "not run",
+                   data.losses, [(r["flash_fwd"], r["flash_bwd_dq"],
+                                  r["flash_bwd_dkv"]) for r in data.launches],
+                   data.peak_gb, data.save_s, data.save_bytes / 1e9,
+                   data.digest_s))
+            served = phase12b_serve_run(torch, tmp, env, 128_256)
+            log("phase 12b: load-to-ready %.1fs, %d requests in %.1fs, "
+                "client TTFT p50 %.2fs (streamed), decode %.2f tok/s, "
+                "spec %s, exit %d after SIGTERM"
+                % (served["load_to_ready_s"], served["requests"],
+                   served["wall_s"], served["ttft_p50_s"],
+                   served["decode_tokens_per_s"],
+                   json.dumps(served["spec"]), served["exit_code"]))
+            t = time.perf_counter()
+            restored = load_run_checkpoint("TrainFlow")
+            restore_s = time.perf_counter() - t
+            digest = params_digest(restored["params"])
+            del restored
+        if digest != data.digest:
+            raise AssertionError("phase 12: the served checkpoint's digest "
+                                 "%s is not the trained parameters' %s"
+                                 % (digest, data.digest))
+        log("phase 12: restore %.1fs; the checkpoint's digest is the trained "
+            "parameters' (%s)" % (restore_s, digest[:16]))
+        row = {"phase": "12", "run_wall_s": wall,
+               "median_step_ms": median, "median_step_ms_9c": base,
+               "save_s": data.save_s, "save_gb": data.save_bytes / 1e9,
+               "restore_s": restore_s,
+               "load_to_ready_s": served["load_to_ready_s"],
+               "ttft_p50_s": served["ttft_p50_s"],
+               "decode_tokens_per_s": served["decode_tokens_per_s"],
+               "digest_equal": True, "run_id": run_id,
+               "step_ms": data.step_ms, "losses": data.losses,
+               "launches": data.launches[-1], "peak_gb": data.peak_gb,
+               "digest_s": data.digest_s, "serve": served}
+        log_row(row)
+        return row
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def summary_lines(done, failed=None):
     """One compact line (at most 200 bytes) per logged phase row: its
     pass result and its headline numbers, printed at the end where the
@@ -3489,6 +3924,10 @@ def run_phases(torch, baseline_root, selected, done, current):
             log("phase 11b done at %.1fs" % (time.perf_counter() - start))
         phase11c_ulysses(torch, llama, A, R, L, training)
         end("11", "11c")
+    flow = None
+    if begin("12"):
+        flow = phase12_flow(torch, flagship)
+        end("12")
     current[0] = "report"
 
     # the kernel report needs every phase that times or counts a kernel;
@@ -3504,6 +3943,8 @@ def run_phases(torch, baseline_root, selected, done, current):
         line = {"name": k["name"], "route": k["route"],
                 "source": k["source"], "replaces": k["replaces"],
                 "status": "ported"}
+        if flow is not None:  # the flow's train task (phase 12a), a step
+            line["launches_flow_train_task"] = flow["launches"][k["name"]]
         if not every_phase:
             line.update(launches=None, max_abs_err=None, ms=None,
                         plain_ms=None, bound_ms=None, bound_by=None,

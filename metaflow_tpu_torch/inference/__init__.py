@@ -6,6 +6,7 @@ from .decode import (
     make_generator,
     pad_to_bucket,
 )
+from .loading import load_run_checkpoint
 
 __all__ = [
     "bucket_length",
@@ -14,4 +15,5 @@ __all__ = [
     "init_kv_cache",
     "make_generator",
     "pad_to_bucket",
+    "load_run_checkpoint",
 ]

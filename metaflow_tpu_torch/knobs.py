@@ -7,7 +7,8 @@ needs, with the same names, defaults, types and parse rules:
 * malformed int/float -> the default;
 * bool: a set value counts as false only for 0/false/no/off
   (case-insensitive), everything else is true;
-* `fallback=` overrides the default at one call site.
+* `fallback=` overrides the default at one call site;
+* a "path" knob reads as a str.
 """
 
 import os
@@ -60,6 +61,40 @@ KNOBS = {
     "TPUFLOW_TENANT_QUANTUM": ("int", 256),
     "TPUFLOW_CACHE_ROUTE_BLOCK": ("int", 16),
     "TPUFLOW_CACHE_ROUTE_DIGESTS": ("int", 512),
+    # config (metaflow_config.py, util.py, cli.py)
+    "TPUFLOW_PROFILE": ("str", ""),
+    "TPUFLOW_HOME": ("path", "~/.tpuflowconfig"),
+    "TPUFLOW_DATASTORE_SYSROOT_GS": ("str", None),
+    "TPUFLOW_USER": ("str", None),
+    "TPUFLOW_DEBUG": ("bool", False),
+    "TPUFLOW_MONITOR": ("str", "file"),
+    "TPUFLOW_EVENT_LOGGER": ("str", "file"),
+    "TPUFLOW_ARGO_EVENTS_URL": ("str", None),
+    # the flow runtime (runtime.py, task.py, plugins/parallel_decorator.py)
+    "TPUFLOW_FORK_WORKERS": ("bool", True),
+    "TPUFLOW_GANG_FINALIZE_TIMEOUT": ("float", 300.0),
+    "TPUFLOW_GANG_NODE_WAIT_TIMEOUT_S": ("float", 0.0),
+    "TPUFLOW_QUEUE_TS": ("float", None),
+    "TPUFLOW_TRIGGER_EVENTS": ("str", None),
+    # knobs of the flow runtime's subsystems the port has not yet (the
+    # elastic supervisor, the hang watchdog, the strict pre-run analysis):
+    # setting one true raises (runtime.py)
+    "TPUFLOW_ELASTIC": ("bool", True),
+    "TPUFLOW_HANG_DETECT": ("bool", True),
+    "TPUFLOW_STRICT_CHECK": ("bool", False),
+    # artifact datastore (datastore/, client/)
+    "TPUFLOW_BLOB_CACHE": ("bool", True),
+    "TPUFLOW_PERSIST_PIPELINE": ("bool", True),
+    "TPUFLOW_PERSIST_WORKERS": ("int", None),
+    "TPUFLOW_PERSIST_UPLOADS": ("int", None),
+    "TPUFLOW_PERSIST_INFLIGHT_MB": ("int", 0),
+    "TPUFLOW_CLIENT_CACHE": ("path", None),
+    # accelerator steps (plugins/gpu/)
+    "TPUFLOW_TPU_LAUNCHER": ("str", None),
+    "TPUFLOW_SPOT_MARKER_TTL_S": ("float", 900.0),
+    "TPUFLOW_SPOT_METADATA_URL": (
+        "str", "http://metadata.google.internal/computeMetadata/v1/"
+        "instance/preempted"),
 }
 
 
@@ -74,6 +109,12 @@ def _raw(name, env):
     if value is None or value == "":
         return None
     return value
+
+
+def is_set(name, env=None):
+    """True when the knob has a non-empty value in the environment."""
+    _default(name, _UNSET)
+    return _raw(name, env) is not None
 
 
 def get_raw(name, env=None):

@@ -18,10 +18,11 @@ knows its step cadence; the watchdog compares `now - ts > deadline_s`. A
 terminal `done()` beat tells the watchdog to stop watching. Beats carry
 the attempt number so a retried attempt never inherits a stale file.
 
-The JAX package finds the ambient task through its flow runtime
-(`current`); the port has no flow runtime yet, so a caller running inside
-a task names it with `set_task`. Outside a task the module-level `beat`
-and `done` are no-ops, as they are in the JAX package outside a flow.
+The module-level `beat` and `done` find the ambient task as the JAX
+package's do, through the flow runtime (`current`); a caller running
+outside a flow can name a task with `set_task`, which takes precedence.
+Outside a task they are no-ops, as they are in the JAX package outside a
+flow.
 """
 
 import json
@@ -147,15 +148,30 @@ def clear_task():
     _task = _beater = _beater_key = None
 
 
+def _ambient_task():
+    """The task named by set_task, else the running flow task's identity
+    from `current`, else None."""
+    if _task is not None:
+        return _task
+    from .current import current
+
+    if not current.is_running_flow:
+        return None
+    return (current.flow_name, str(current.run_id), current.step_name,
+            str(current.task_id), int(current.retry_count or 0),
+            int(os.environ.get("MF_PARALLEL_NODE_INDEX", "0")), None)
+
+
 def _current_beater():
-    """The process's ProgressBeater for the bound task, or None outside
+    """The process's ProgressBeater for the ambient task, or None outside
     one. Re-resolved when the task identity (or the process) changes."""
     global _beater, _beater_key
-    if _task is None:
+    task = _ambient_task()
+    if task is None:
         return None
-    key = _task + (os.getpid(),)
+    key = task + (os.getpid(),)
     if _beater is None or _beater_key != key:
-        flow_name, run_id, step_name, task_id, attempt, rank, root = _task
+        flow_name, run_id, step_name, task_id, attempt, rank, root = task
         path = progress_path(root or get_tpuflow_root(), flow_name, run_id,
                              step_name, task_id)
         _beater = ProgressBeater(path, rank=rank, attempt=attempt)
@@ -176,3 +192,11 @@ def done(step_num=None):
     b = _current_beater()
     if b is not None:
         b.done(step_num=step_num)
+
+
+def finish():
+    """Task-exit hook: a terminal beat IF this process ever beat. Tasks
+    that never reported progress (join steps, plain steps) never get a
+    progress file at all."""
+    if _beater is not None:
+        _beater.done()

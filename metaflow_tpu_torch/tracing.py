@@ -1,5 +1,5 @@
-"""Tracing for the serving path: the part of the JAX package's tracing
-module that the scheduler and the HTTP server call.
+"""Tracing: the parts of the JAX package's tracing module that the flow
+runtime, the scheduler and the HTTP server call.
 
 `span` tees a timed block into the run's flight recorder (telemetry.py)
 when one is active and is a no-op otherwise; the port ships no
@@ -41,6 +41,29 @@ def _span_data(attributes):
         k: (v if isinstance(v, (str, int, float, bool)) else str(v))
         for k, v in attributes.items()
     }
+
+
+def inject_tracing_vars(env):
+    """Propagate the trace context into a subprocess env: an ambient
+    TRACEPARENT (set by a CI driver, a parent scheduler, or
+    ensure_traceparent) is forwarded, so every task and gang rank of a
+    run share one trace id in their telemetry records."""
+    if _TRACEPARENT_VAR in os.environ:
+        env.setdefault(_TRACEPARENT_VAR, os.environ[_TRACEPARENT_VAR])
+    return env
+
+
+def ensure_traceparent(seed):
+    """Make sure this process carries a W3C TRACEPARENT, synthesizing a
+    deterministic one from `seed` (the run id) when absent. Returns the
+    value."""
+    existing = os.environ.get(_TRACEPARENT_VAR)
+    if existing:
+        return existing
+    digest = hashlib.sha256(("tpuflow-run:%s" % seed).encode()).hexdigest()
+    value = "00-%s-%s-01" % (digest[:32], digest[32:48])
+    os.environ[_TRACEPARENT_VAR] = value
+    return value
 
 
 def trace_requests_enabled(env=None):

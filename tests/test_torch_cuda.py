@@ -697,3 +697,97 @@ def test_mixtral_step_does_not_synchronise(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert L.LAUNCHES["gmm_fwd"] == 9 * cfg.n_layers
     assert torch.isfinite(metrics["loss"]).item()
+
+
+CARD_GANG = '''
+from metaflow_tpu_torch import FlowSpec, current, gpu, step
+
+
+def reduce_both():
+    """All-reduce a CPU tensor and a CUDA tensor over the gang."""
+    import torch
+    import torch.distributed as dist
+
+    rank = current.parallel.node_index
+    on_cpu = torch.tensor([float(rank + 1)])
+    dist.all_reduce(on_cpu)
+    on_card = torch.full((1024,), float(rank + 1), device="cuda")
+    dist.all_reduce(on_card)
+    return [rank, dist.get_backend(), torch.cuda.current_device(),
+            on_cpu.item(), on_card.min().item(), on_card.max().item()]
+
+
+class CardGangFlow(FlowSpec):
+    @step
+    def start(self):
+        self.next(self.on_gpu, num_parallel=RANKS)
+
+    @gpu(require_gpu=True)
+    @step
+    def on_gpu(self):
+        self.out = reduce_both()
+        self.next(self.join_gpu)
+
+    @step
+    def join_gpu(self, inputs):
+        self.outs = sorted(inp.out for inp in inputs)
+        self.next(self.between)
+
+    @step
+    def between(self):
+        self.next(self.plain, num_parallel=RANKS)
+
+    @step
+    def plain(self):
+        self.out = reduce_both()
+        self.next(self.join_plain)
+
+    @step
+    def join_plain(self, inputs):
+        self.outs = sorted(inp.out for inp in inputs)
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
+if __name__ == "__main__":
+    CardGangFlow()
+'''
+
+
+def test_card_gang_reduces_cpu_and_cuda_tensors(tmp_path, monkeypatch):
+    """A num_parallel gang of one rank per card (up to 4), once with @gpu
+    and once without: in both, each rank sits on card node_index, and an
+    all_reduce of a CPU tensor (gloo) and of a CUDA tensor (NCCL) gives the
+    sum over the ranks."""
+    import os
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more: NCCL refuses two ranks on "
+                    "one card")
+    ranks = min(torch.cuda.device_count(), 4)
+    path = tmp_path / "card_gang_flow.py"
+    path.write_text(CARD_GANG.replace("RANKS", str(ranks)))
+    root = str(tmp_path / "root")
+    env = dict(os.environ, TPUFLOW_DATASTORE_SYSROOT_LOCAL=root,
+               TPUFLOW_CLIENT_CACHE=str(tmp_path / "cache"),
+               PYTHONPATH=os.path.dirname(os.path.dirname(
+                   os.path.abspath(__file__))))
+    proc = subprocess.run([sys.executable, str(path), "run"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    monkeypatch.setenv("TPUFLOW_DATASTORE_SYSROOT_LOCAL", root)
+    from metaflow_tpu_torch import client
+
+    client.namespace(None)
+    run = client.Flow("CardGangFlow").latest_run
+    assert run.successful
+    total = float(ranks * (ranks + 1) // 2)
+    want = [[r, "cpu:gloo,cuda:nccl", r, total, total, total]
+            for r in range(ranks)]
+    assert run["join_gpu"].task.data.outs == want
+    assert run["join_plain"].task.data.outs == want

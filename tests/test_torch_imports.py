@@ -34,7 +34,11 @@ def test_import_leaves_jax_out():
             " metaflow_tpu_torch.ops.ring_attention,"
             " metaflow_tpu_torch.models.mixtral,"
             " metaflow_tpu_torch.training.train_step,"
-            " metaflow_tpu_torch.training.metrics;"
+            " metaflow_tpu_torch.training.metrics,"
+            " metaflow_tpu_torch.flowspec, metaflow_tpu_torch.runtime,"
+            " metaflow_tpu_torch.task, metaflow_tpu_torch.cli,"
+            " metaflow_tpu_torch.client, metaflow_tpu_torch.plugins,"
+            " metaflow_tpu_torch.inference.loading;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'metaflow_tpu'));"
             "print(bad); sys.exit(1 if bad else 0)")
