@@ -178,6 +178,30 @@ Phase 12 runs a user's flow on the card through the port's own command
          median step ms beside 9c's, save seconds and bytes, restore
          seconds, load-to-ready seconds, client TTFT p50 and decode tok/s.
 
+Phase 13 runs a user's flow whose gang step trains on a mesh of every
+         card: this process first returns its cached blocks on card 0
+         (gc, empty_cache; its CUDA context stays) and prints what it
+         still holds, then runs `python mesh_flow.py run` in a temporary
+         directory: start -> train (num_parallel = device_count, one rank
+         per card, @gpu) -> join -> end. Each rank builds
+         create_mesh(MeshSpec.fsdp()) and MeshSpec.dp() over the gang's
+         group. (a) bench_1b cut to 2 layers in f32, AdamW, 3 steps on
+         tokens [8, 1025] on fsdp=N, then on data=N with ZeRO; rank 0 runs
+         the same steps on its card off any mesh: losses and grad norms
+         within 1e-4 relative, weights within atol/rtol 1e-5 for all but
+         1 in 1000 and within 2 sum(lr) each (tests/test_torch_mesh.py's
+         f32 rule); each rank holds 1/N of the ZeRO moments. (c) the fsdp
+         state saved by AsyncCheckpointManager (each leaf gathered, rank 0
+         writes the whole tree) and restored by make_trainer(checkpoint=)
+         onto the ZeRO mesh (on one card: off any mesh); its digest must
+         be the saved one's on every rank. (b) Llama-3-8B uncut, fed by
+         sharded_dataset: with four cards or more AdamW on fsdp=N at
+         [4N, 2049], else the factored optimizer on fsdp=N (the one-card
+         mesh holds the 8B as 9c does); 3 steps, losses finite and equal
+         on every rank, 2L/L/L K1/K2/K3 launches a step on every rank,
+         each card's peak under 80 GB; prints the median step ms, global
+         tokens/s, MFU over the world's peak and each card's peak.
+
 Every phase asserts; the script exits non-zero on the first failure, when
 no CUDA device is present, or when the port's package is missing. Its last
 lines are the kernel report, one SUMMARY line per phase (its pass result
@@ -207,7 +231,7 @@ H100_BYTES_PER_S = 3.35e12    # HBM3
 
 
 ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11",
-              "12")
+              "12", "13")
 ROWS = {}  # the last JSON row each phase (or phase and variant) logged
 # the numbers a summary line shows first
 HEADLINES = ("records_vs_clock", "median_step_ms", "median_step_ms_9c",
@@ -1398,6 +1422,7 @@ def active_params(params, cfg):
 
 
 KERNEL_GROUPS = (  # device-time buckets of a profiled step, first match
+    ("NCCL collectives", ("nccl",)),
     ("K4 flash_block_fwd", ("flash_fwd_wgmma_kernel<128, true>",
                             "flash_fwd_wgmma_kernel<64, true>",
                             "flash_fwd_f32_kernel<128, true>",
@@ -1433,8 +1458,10 @@ def profiled(torch, run):
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
+        # c10d's "nccl:<op>" ranges on the device repeat their kernel's time
         if us and getattr(ev, "device_type", None) is not None and \
-                str(ev.device_type).endswith("CUDA"):
+                str(ev.device_type).endswith("CUDA") and \
+                not ev.key.startswith("nccl:"):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
     buckets = {}
     for name, ms in kernels.items():
@@ -1443,9 +1470,40 @@ def profiled(torch, run):
                       if any(k in low for k in keys)), "other")
         buckets[group] = buckets.get(group, 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    # from the trace's timeline: the time some kernel, copy or fill ran
+    # on the card, the time NCCL's kernels ran, and how much other work
+    # ran beside them
+    spans = device_spans(prof)
+    nccl = [(a, b) for name, a, b in spans if "nccl" in name.lower()]
+    rest = [(a, b) for name, a, b in spans if "nccl" not in name.lower()]
     return result, {"wall_ms": wall, "device_ms": sum(kernels.values()),
                     "by_group_ms": buckets,
-                    "top_kernels_ms": [[k[:90], v] for k, v in top]}
+                    "top_kernels_ms": [[k[:90], v] for k, v in top],
+                    "busy_ms": covered_ms(nccl + rest),
+                    "nccl_ms": covered_ms(nccl),
+                    "nccl_beside_other_ms": covered_ms(nccl) +
+                    covered_ms(rest) - covered_ms(nccl + rest)}
+
+
+def device_spans(prof):
+    """(name, start ms, end ms) of each event on the card in a finished
+    torch.profiler trace: kernels, copies, fills; c10d's "nccl:" ranges,
+    annotations over their kernels, left out."""
+    return [(ev.name, ev.time_range.start / 1e3, ev.time_range.end / 1e3)
+            for ev in prof.events()
+            if str(ev.device_type).endswith("CUDA") and
+            not ev.name.startswith("nccl:") and
+            ev.time_range.elapsed_us() > 0]
+
+
+def covered_ms(spans):
+    """The length of the union of (start, end) spans."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def phase7b_train(torch, mixtral, L, G, FC, training):
@@ -3702,6 +3760,549 @@ def phase12_flow(torch, flagship=None):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: a user's gang step trains on a mesh of every card
+# ---------------------------------------------------------------------------
+
+# the user's flow file; PARAMS_DIGEST is replaced by the sources of
+# params_digest and profiled (with KERNEL_GROUPS), and the settings come
+# from CHIP_SMOKE_MESH (json): the ranks, the device,
+# the configurations and sizes of 13a-13c, the checkpoint directory
+MESH_FLOW = '''
+import json
+import os
+
+from metaflow_tpu_torch import FlowSpec, current, gpu, step
+
+PARAMS_DIGEST
+
+SETTINGS = json.loads(os.environ["CHIP_SMOKE_MESH"])
+
+
+def whole(tree):
+    """The tensors of a state, each made whole (a collective on a mesh:
+    every rank calls it, in the same order)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = whole(value)
+        elif hasattr(value, "full_tensor"):
+            out[key] = value.full_tensor()
+        elif hasattr(value, "shape"):
+            out[key] = value.detach()
+    return out
+
+
+def config(spec):
+    from metaflow_tpu_torch.models import llama
+
+    spec = dict(spec)
+    return getattr(llama.LlamaConfig, spec.pop("base"))(**spec)
+
+
+def close(got, want, lrs):
+    """f32 weights after steps with learning rates `lrs` against another
+    run's: (share of weights off atol/rtol 1e-5, max abs difference,
+    the bound 2 sum(lr) every weight must stay within)."""
+    import torch
+
+    off, n, worst = 0, 0, 0.0
+    for key in got:
+        if isinstance(got[key], dict):
+            o, m, w, _ = close(got[key], want[key], lrs)
+            off, n, worst = off + o * m, n + m, max(worst, w)
+            continue
+        d = (got[key].float() - want[key].float()).abs()
+        off += int((d > 1e-5 + 1e-5 * want[key].float().abs()).sum())
+        n += d.numel()
+        worst = max(worst, d.max().item())
+    return off / max(n, 1), n, worst, 2 * sum(lrs)
+
+
+class MeshTrainFlow(FlowSpec):
+    """A gang of one rank per card: bench_1b cut in depth on a mesh of
+    every card, fsdp then data with ZeRO, held to one card (13a); the
+    fsdp state saved sharded and restored onto the ZeRO mesh, or off any
+    mesh on one card (13c); Llama-3-8B on fsdp over every card (13b)."""
+
+    @step
+    def start(self):
+        self.next(self.train, num_parallel=SETTINGS["ranks"])
+
+    @gpu(require_gpu=SETTINGS["device"] == "cuda")
+    @step
+    def train(self):
+        import gc
+        import statistics
+        import time
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from metaflow_tpu_torch import spmd, training
+        from metaflow_tpu_torch.datastore import LocalFlowDataStore
+        from metaflow_tpu_torch.models import llama
+        from metaflow_tpu_torch.ops import launches
+
+        s = SETTINGS
+        dev = s["device"]
+        rank = current.parallel.node_index
+        n = current.parallel.num_nodes
+        on_card = dev == "cuda"
+
+        def sync():
+            if on_card:
+                torch.cuda.synchronize()
+
+        fsdp = spmd.create_mesh(spmd.MeshSpec.fsdp(), device=dev)
+        data = spmd.create_mesh(spmd.MeshSpec.dp(), device=dev)
+        out = {"rank": rank, "world": dist.get_world_size(),
+               "fsdp_mesh": dict(fsdp.shape), "data_mesh": dict(data.shape),
+               "device": torch.cuda.get_device_name() if on_card else "cpu"}
+
+        # 13a: three AdamW steps in f32 on each mesh and on one card
+        small = config(s["small"])
+        tokens = torch.randint(
+            0, small.vocab_size, (s["small_rows"], s["small_seq"] + 1),
+            generator=torch.Generator().manual_seed(7))
+        adamw = training.default_optimizer(warmup_steps=1, total_steps=10)
+        lrs = [adamw.schedule(c) for c in range(3)]
+
+        def three_steps(mesh, zero=None, checkpoint=None):
+            state, step = training.make_trainer(
+                small, llama, optimizer=adamw, device=dev, mesh=mesh,
+                zero=zero, checkpoint=checkpoint,
+                generator=torch.Generator(device=dev).manual_seed(3))
+            if checkpoint is not None:
+                return state, None
+            losses, norms = [], []
+            for _ in range(3):
+                state, m = step(state, {"tokens": tokens})
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+            return state, (losses, norms)
+
+        runs = {}
+        t = time.perf_counter()
+        state, runs["fsdp"] = three_steps(fsdp)
+        out["13a_fsdp_s"] = time.perf_counter() - t
+        params_fsdp = whole(state["params"])
+        # 13c: the fsdp state saved sharded (rank 0 writes the whole tree)
+        mgr = training.AsyncCheckpointManager(
+            LocalFlowDataStore("MeshTrainFlow", s["checkpoint_dir"]),
+            name="mesh")
+        t = time.perf_counter()
+        mgr.save(state, 3)
+        mgr.wait()
+        out["13c_save_s"] = time.perf_counter() - t
+        saved = params_digest(whole(state))
+        del state
+        t = time.perf_counter()
+        state, runs["data_zero"] = three_steps(data, zero=True)
+        out["13a_data_zero_s"] = time.perf_counter() - t
+        params_zero = whole(state["params"])
+        out["13a_zero_state_share"] = sum(
+            t.to_local().numel() for t in dtensors(state["opt_state"])) / \
+            sum(t.numel() for t in dtensors(state["opt_state"]))
+        del state
+        # 13c: restored onto the ZeRO mesh, or off any mesh on one card
+        target = data if n > 1 else None
+        t = time.perf_counter()
+        state, _ = three_steps(target, zero=True if n > 1 else None,
+                               checkpoint=mgr)
+        out["13c_restore_s"] = time.perf_counter() - t
+        out["13c_restored_onto"] = dict(data.shape) if n > 1 else "one card"
+        out["13c_digest_equal"] = params_digest(whole(state)) == saved
+        out["13c_digest"] = saved[:16]
+        del state
+        out["13a_runs"] = runs
+        if rank == 0:  # the same three steps on this card, off any mesh
+            one, runs["one_card"] = three_steps(None)
+            one = whole(one["params"])
+            for name in ("fsdp", "data_zero"):
+                share, count, worst, bound = close(
+                    params_fsdp if name == "fsdp" else params_zero, one, lrs)
+                out["13a_%s_vs_one_card" % name] = {
+                    "share_off_1e-5": share, "weights": count,
+                    "max_abs": worst, "bound": bound,
+                    "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(
+                        runs[name][0], runs["one_card"][0])),
+                    "grad_norm_rel": max(abs(a - b) / abs(b) for a, b in zip(
+                        runs[name][1], runs["one_card"][1]))}
+            del one
+        # the manager's last_restored holds the restored state: let both
+        # go, so 13b starts on an empty card
+        del params_fsdp, params_zero, mgr
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            out["13b_held_before_gb"] = torch.cuda.memory_allocated() / 1e9
+        dist.barrier()
+
+        # 13b: the big model on fsdp over every card, fed by
+        # sharded_dataset: AdamW on four cards or more, else the factored
+        # optimizer (the one-card mesh holds the 8B as phase 9c does)
+        big = config(s["big"])
+        use_adamw = n >= 4
+        opt = adamw if use_adamw else training.memory_efficient_optimizer(
+            warmup_steps=1, total_steps=10)
+        rows = s["big_rows_per_rank"] * n
+        t = time.perf_counter()
+        state, step = training.make_trainer(
+            big, llama, optimizer=opt, device=dev, mesh=fsdp,
+            generator=torch.Generator(device=dev).manual_seed(14))
+        sync()
+        out["13b_init_s"] = time.perf_counter() - t
+        n_params = sum(p.numel() for _, p in
+                       training.train_step.leaves(state["params"]))
+        corpus = np.random.default_rng(15).integers(
+            0, big.vocab_size, rows * (s["seq"] + 1) * 8, dtype=np.int64)
+        batches = training.sharded_dataset(corpus, rows, s["seq"], fsdp,
+                                           seed=16)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        # three steps timed, a fourth under torch.profiler (on the card)
+        losses, ms, counts, profile = [], [], [], None
+        try:
+            for i in range(4 if on_card else 3):
+                batch = next(batches)
+                batch.pop(training.STATE_KEY)
+                launches.reset_launch_counts()
+                sync()
+                t = time.perf_counter()
+                if i == 3:
+                    (state, m), profile = profiled(
+                        torch, lambda: step(state, batch))
+                else:
+                    state, m = step(state, batch)
+                losses.append(m["loss"].item())
+                sync()
+                if i < 3:
+                    ms.append((time.perf_counter() - t) * 1e3)
+                counts.append(dict(launches.LAUNCHES))
+        finally:
+            batches.close()
+        median = statistics.median(ms[1:])
+        fpt = training.flops_per_token_dense(n_params, big.n_layers,
+                                             big.dim, s["seq"])
+        peak = training.peak_tflops(out["device"])
+        tokens_per_s = rows * s["seq"] / median * 1e3
+        out["13b"] = {
+            "optimizer": "adamw" if use_adamw else "factored",
+            "mesh": dict(fsdp.shape), "tokens": [rows, s["seq"] + 1],
+            "params": n_params, "layers": big.n_layers,
+            "losses": losses, "step_ms": ms, "median_step_ms": median,
+            "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * fpt / (n * peak * 1e12) if peak else None,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+            "launches": counts, "profile": profile,
+            "checkpoint": big_checkpoint(state, len(losses), big, opt, fsdp,
+                                         s, dev) if use_adamw else None}
+        del state, step
+        dist.barrier()
+        self.result = out
+        self.next(self.join)
+
+    @step
+    def join(self, inputs):
+        self.ranks = sorted((inp.result for inp in inputs),
+                            key=lambda r: r["rank"])
+        self.next(self.end)
+
+    @step
+    def end(self):
+        pass
+
+
+def big_checkpoint(state, step, cfg, opt, mesh, s, dev):
+    """The 8B AdamW state saved sharded (rank 0 gathers and writes the
+    whole tree) and restored by make_trainer(checkpoint=) onto the same
+    mesh, one leaf at a time; each rank's blocks held to the live state's
+    bit for bit. Rank 0 decides, for every rank, whether the host and the
+    disk have room: the host for three copies of the state on rank 0 (the
+    pinned snapshot, the serialized blob and its packed copy), the disk
+    for one."""
+    import resource
+    import shutil
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from metaflow_tpu_torch import training
+    from metaflow_tpu_torch.datastore import LocalFlowDataStore
+    from metaflow_tpu_torch.models import llama
+
+    leaves = training.train_step.leaves
+    state_gb = sum(t.numel() * t.element_size() for _, t in leaves(state)
+                   if isinstance(t, torch.Tensor)) / 1e9
+    os.makedirs(s["checkpoint_dir"], exist_ok=True)
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) for line in f
+                     if line.startswith("MemAvailable:")) / 1e6
+    out = {"state_gb": state_gb,
+           "need_host_gb": 3 * state_gb, "need_disk_gb": 1.1 * state_gb,
+           "host_available_gb": avail,
+           "disk_free_gb": shutil.disk_usage(s["checkpoint_dir"]).free / 1e9}
+    go = torch.tensor([float(avail >= out["need_host_gb"] and
+                             out["disk_free_gb"] >= out["need_disk_gb"])],
+                      device=dev)
+    dist.broadcast(go, 0)
+    out["ran"] = bool(go.item())
+    if not out["ran"]:
+        return out
+    on_card = dev == "cuda"
+    mgr = training.AsyncCheckpointManager(
+        LocalFlowDataStore("MeshTrainFlow", s["checkpoint_dir"]), name="big")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    mgr.save(state, step)
+    out["save_blocked_s"] = time.perf_counter() - t
+    mgr.wait()
+    out["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    restored, _ = training.make_trainer(
+        cfg, llama, optimizer=opt, device=dev, mesh=mesh, checkpoint=mgr,
+        generator=torch.Generator(device=dev).manual_seed(99))
+    if on_card:
+        torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                      else None)
+    out["host_rss_peak_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t
+    pairs = list(zip(leaves(state), leaves(restored)))
+    out["equal"] = all(
+        pa == pb and (torch.equal(local(a), local(b))
+                      if isinstance(a, torch.Tensor) else a == b)
+        for (pa, a), (pb, b) in pairs)
+    del restored, mgr
+    return out
+
+
+def dtensors(tree):
+    """The DTensor leaves of a state."""
+    for value in tree.values():
+        if isinstance(value, dict):
+            yield from dtensors(value)
+        elif hasattr(value, "to_local"):
+            yield value
+
+
+if __name__ == "__main__":
+    MeshTrainFlow()
+'''
+
+# 13a-13c at the sizes the card runs them (MESH_FLOW's settings)
+MESH_SETTINGS = {"small": {"base": "bench_1b", "n_layers": 2,
+                           "dtype": "float32"},
+                 "small_rows": 8, "small_seq": 1024,
+                 "big": {"base": "llama3_8b"}, "big_rows_per_rank": 4,
+                 "seq": 2048}
+
+
+def run_mesh_flow(tmp, settings, timeout_s=900):
+    """`python mesh_flow.py run` in `tmp` with `settings` (MESH_FLOW's),
+    its datastore under tmp; returns (run id, wall seconds, each rank's
+    result in rank order)."""
+    import inspect
+
+    flow_file = os.path.join(tmp, "mesh_flow.py")
+    helpers = "import time\n\nKERNEL_GROUPS = %r\n\n\n%s" % (
+        KERNEL_GROUPS, "\n\n".join(inspect.getsource(fn) for fn in (
+            profiled, device_spans, covered_ms, params_digest)))
+    with open(flow_file, "w") as f:
+        f.write(MESH_FLOW.replace("PARAMS_DIGEST", helpers))
+    root = os.path.join(tmp, "tpuflow")
+    env = dict(os.environ, PYTHONPATH=HERE,
+               TPUFLOW_DATASTORE_SYSROOT_LOCAL=root,
+               CHIP_SMOKE_MESH=json.dumps(settings))
+    out = os.path.join(tmp, "mesh_run.log")
+    t = time.perf_counter()
+    with open(out, "w") as f:
+        rc = subprocess.run([sys.executable, flow_file, "run"], cwd=tmp,
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            timeout=timeout_s).returncode
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError("phase 13: mesh_flow.py run exited %d:\n%s"
+                             % (rc, _tail(out, 80)))
+    from metaflow_tpu_torch import client
+
+    with _datastore_root(root):
+        client.namespace(None)
+        run = client.Flow("MeshTrainFlow").latest_run
+        if not run.successful:
+            raise AssertionError("phase 13: run %s not successful:\n%s"
+                                 % (run.id, _tail(out, 80)))
+        return run.id, wall, run["join"].task.data.ranks
+
+
+def check_mesh_run(ranks, settings):
+    """Phase 13's checks on every rank's result; raises on the first
+    failure."""
+    n = settings["ranks"]
+    n_layers = ranks[0]["13b"]["layers"]
+    if [r["rank"] for r in ranks] != list(range(n)) or \
+            any(r["world"] != n for r in ranks):
+        raise AssertionError("phase 13: ranks %s, expected %d of a world "
+                             "of %d" % ([(r["rank"], r["world"])
+                                         for r in ranks], n, n))
+    for name in ("fsdp", "data_zero"):
+        if len({json.dumps(r["13a_runs"][name]) for r in ranks}) != 1:
+            raise AssertionError("phase 13a: the ranks' %s losses differ: %s"
+                                 % (name, [r["13a_runs"][name]
+                                           for r in ranks]))
+        c = ranks[0]["13a_%s_vs_one_card" % name]
+        # f32: losses and grad norms as tests/test_torch_optim.py's
+        # STEP_REL, weights as tests/test_torch_mesh.py's f32 rule
+        if not (c["loss_rel"] <= 1e-4 and c["grad_norm_rel"] <= 1e-4 and
+                c["share_off_1e-5"] <= 1e-3 and c["max_abs"] <= c["bound"]):
+            raise AssertionError("phase 13a: %s on %s against one card: %s"
+                                 % (name, ranks[0]["%s_mesh" % name.split(
+                                     "_")[0]], c))
+    if n > 1 and ranks[0]["13a_zero_state_share"] > 1.0 / n + 1e-3:
+        raise AssertionError("phase 13a: each rank holds %.4f of the ZeRO "
+                             "optimizer state, not 1/%d"
+                             % (ranks[0]["13a_zero_state_share"], n))
+    if not all(r["13c_digest_equal"] for r in ranks):
+        raise AssertionError("phase 13c: the restored state's digest is not "
+                             "the saved one's on ranks %s"
+                             % [r["rank"] for r in ranks
+                                if not r["13c_digest_equal"]])
+    big = [r["13b"] for r in ranks]
+    if len({json.dumps(b["losses"]) for b in big}) != 1 or \
+            not all(x == x and abs(x) < 1e4 for x in big[0]["losses"]):
+        raise AssertionError("phase 13b: losses %s" % [b["losses"]
+                                                       for b in big])
+    if settings["device"] == "cuda":
+        want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers, "flash_block_fwd": 0,
+                "gmm_fwd": 0, "gmm_dw": 0}
+        for r, b in zip(ranks, big):
+            if any(c != want for c in b["launches"]):
+                raise AssertionError("phase 13b: rank %d launched %s a "
+                                     "step, expected %s"
+                                     % (r["rank"], b["launches"], want))
+            if not b["peak_gb"] < 80:
+                raise AssertionError("phase 13b: rank %d peaked at %.2f GB"
+                                     % (r["rank"], b["peak_gb"]))
+    bad = [r["rank"] for r, b in zip(ranks, big) if b["checkpoint"] and
+           b["checkpoint"]["ran"] and not b["checkpoint"]["equal"]]
+    if bad:
+        raise AssertionError("phase 13b: the blocks of the restored 8B "
+                             "state differ from the saved ones on ranks %s"
+                             % bad)
+
+
+def phase13_mesh_flow(torch):
+    """A user's flow whose gang step trains on a mesh of every card."""
+    import shutil
+
+    # this process holds a CUDA context and the allocator's cached blocks
+    # on card 0, where rank 0 runs: the blocks go back to the card here
+    _free(torch)
+    held = (torch.cuda.memory_allocated(0) / 1e9,
+            torch.cuda.memory_reserved(0) / 1e9)
+    log("phase 13: before the gang this process holds %.3f GB allocated, "
+        "%.3f GB reserved on card 0 (its CUDA context stays)" % held)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    log("phase 13: %d cards: %s" % (len(cards), "; ".join(cards)))
+    n = torch.cuda.device_count()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        settings = dict(MESH_SETTINGS, ranks=n, device="cuda",
+                        checkpoint_dir=os.path.join(tmp, "ckpt"))
+        run_id, wall, ranks = run_mesh_flow(tmp, settings)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    small = {k: r0["13a_%s_vs_one_card" % k] for k in ("fsdp", "data_zero")}
+    ROWS["13a"] = {"phase": "13a", "ranks": n, "run_wall_s": wall,
+                   "fsdp_loss_rel": small["fsdp"]["loss_rel"],
+                   "fsdp_max_abs": small["fsdp"]["max_abs"],
+                   "zero_loss_rel": small["data_zero"]["loss_rel"],
+                   "zero_max_abs": small["data_zero"]["max_abs"],
+                   "bound": small["fsdp"]["bound"],
+                   "zero_state_share": r0["13a_zero_state_share"],
+                   "fsdp_s": r0["13a_fsdp_s"],
+                   "zero_s": r0["13a_data_zero_s"], "detail": small,
+                   "losses": r0["13a_runs"]}
+    big = [r["13b"] for r in ranks]
+    ROWS["13b"] = {"phase": "13b", "optimizer": big[0]["optimizer"],
+                   "mesh": json.dumps(big[0]["mesh"]),
+                   "median_step_ms": big[0]["median_step_ms"],
+                   "tokens_per_s": big[0]["tokens_per_s"],
+                   "mfu": big[0]["mfu"],
+                   "peak_gb_max": max(b["peak_gb"] for b in big),
+                   "init_s": r0["13b_init_s"], "params": big[0]["params"],
+                   "held_before_gb": [r.get("13b_held_before_gb")
+                                      for r in ranks],
+                   "tokens": big[0]["tokens"],
+                   "peak_gb": [b["peak_gb"] for b in big],
+                   "step_ms": [b["step_ms"] for b in big],
+                   "losses": big[0]["losses"],
+                   "launches": big[0]["launches"][-1],
+                   "profile_step_3": [b["profile"] for b in big],
+                   "checkpoint": [b["checkpoint"] for b in big]}
+    ck = big[0]["checkpoint"]
+    ROWS["13b.ckpt"] = {"phase": "13b.ckpt", "ran": bool(ck and ck["ran"])}
+    if ck:
+        ROWS["13b.ckpt"].update(
+            (k, ck[k]) for k in ("state_gb", "save_s", "save_blocked_s",
+                                 "restore_s", "peak_gb", "equal",
+                                 "host_available_gb", "disk_free_gb")
+            if k in ck)
+        ROWS["13b.ckpt"]["host_rss_peak_gb"] = [
+            b["checkpoint"].get("host_rss_peak_gb") for b in big]
+    else:
+        ROWS["13b.ckpt"]["why"] = "one card: the factored 8B"
+    ROWS["13c"] = {"phase": "13c", "digest_equal": True,
+                   "restored_onto": json.dumps(r0["13c_restored_onto"]),
+                   "save_s": r0["13c_save_s"],
+                   "restore_s": r0["13c_restore_s"],
+                   "digest": r0["13c_digest"]}
+    for key in ("13a", "13b", "13b.ckpt", "13c"):
+        log(json.dumps(ROWS[key]))
+    check_mesh_run(ranks, settings)
+    b = ROWS["13b"]
+    log("phase 13: MeshTrainFlow/%s, %d ranks, %.1fs of wall time; 13b "
+        "Llama-3-8B %s on %s, tokens %s: %.1f ms a step, %.0f tokens/s, MFU "
+        "%.4f, peak %s GB, K1/K2/K3 %s a step per rank; 13a fsdp and ZeRO "
+        "within %s of one card; 13c digest equal" % (
+            run_id, n, wall, b["optimizer"], b["mesh"], b["tokens"],
+            b["median_step_ms"], b["tokens_per_s"], b["mfu"],
+            ["%.2f" % x for x in b["peak_gb"]],
+            [(c["flash_fwd"], c["flash_bwd_dq"], c["flash_bwd_dkv"])
+             for c in big[0]["launches"]],
+            {k: "%.3g" % v["max_abs"] for k, v in small.items()}))
+    prof = big[0]["profile"]
+    if prof:
+        log("phase 13b: rank 0's step 3 under torch.profiler: %.1f ms of "
+            "wall, %.1f ms of kernels (all streams), by group %s; on the "
+            "timeline the card was busy %.1f ms, NCCL's kernels ran %.1f "
+            "ms, %.1f ms of it beside other work"
+            % (prof["wall_ms"], prof["device_ms"],
+               {k: round(v, 1) for k, v in sorted(
+                   prof["by_group_ms"].items(), key=lambda kv: -kv[1])},
+               prof["busy_ms"], prof["nccl_ms"],
+               prof["nccl_beside_other_ms"]))
+        ROWS["13b.timeline"] = {
+            "phase": "13b.timeline", "wall_ms": prof["wall_ms"],
+            "busy_ms": prof["busy_ms"], "kernel_sum_ms": prof["device_ms"],
+            "nccl_ms": prof["nccl_ms"],
+            "nccl_beside_other_ms": prof["nccl_beside_other_ms"]}
+    return ROWS["13b"]
+
+
 def summary_lines(done, failed=None):
     """One compact line (at most 200 bytes) per logged phase row: its
     pass result and its headline numbers, printed at the end where the
@@ -3924,10 +4525,13 @@ def run_phases(torch, baseline_root, selected, done, current):
             log("phase 11b done at %.1fs" % (time.perf_counter() - start))
         phase11c_ulysses(torch, llama, A, R, L, training)
         end("11", "11c")
-    flow = None
+    flow = mesh = None
     if begin("12"):
         flow = phase12_flow(torch, flagship)
         end("12")
+    if begin("13"):
+        mesh = phase13_mesh_flow(torch)
+        end("13")
     current[0] = "report"
 
     # the kernel report needs every phase that times or counts a kernel;
@@ -3945,6 +4549,9 @@ def run_phases(torch, baseline_root, selected, done, current):
                 "status": "ported"}
         if flow is not None:  # the flow's train task (phase 12a), a step
             line["launches_flow_train_task"] = flow["launches"][k["name"]]
+        if mesh is not None:  # a rank of the gang's mesh step (13b)
+            line["launches_mesh_step_per_rank"] = \
+                mesh["launches"][k["name"]]
         if not every_phase:
             line.update(launches=None, max_abs_err=None, ms=None,
                         plain_ms=None, bound_ms=None, bound_by=None,

@@ -90,8 +90,9 @@ def build_engine(params, cfg, slots=8, max_seq_len=None, prefill_chunk=64,
 
     if mesh_spec:
         raise NotImplementedError(
-            "serving on a mesh (mesh_spec=%r) needs several cards; it "
-            "waits for the multi-GPU slice of the port" % (mesh_spec,))
+            "serving on a mesh (mesh_spec=%r) is not ported yet "
+            "(ROADMAP.md, slice 5, multi-GPU: serving on a mesh)"
+            % (mesh_spec,))
     if paged or knobs.get_bool("TPUFLOW_PAGED"):
         return PagedEngine(params, cfg, max_slots=slots,
                            max_seq_len=max_seq_len,

@@ -454,13 +454,39 @@ def _like_leaves(structure, like):
     return out
 
 
-def read_pytree(f, like=None):
+def pytree_skeleton(f):
+    """The tree of the pytree file `f` with each tensor leaf a meta
+    tensor of its saved dtype and shape (a numpy dtype's leaf a zero-stride
+    array), read without its data: `f` seeks past each leaf (forward
+    only, as a gzip stream can)."""
+    import torch
+
+    hlen = int.from_bytes(f.read(8), "little")
+    header = json.loads(f.read(hlen).decode("utf-8"))
+    leaves = []
+    for size in header["sizes"]:
+        head_len = int.from_bytes(f.read(4), "little")
+        head = json.loads(f.read(head_len).decode("utf-8"))
+        dtype = _resolve_dtype(head["dtype"])
+        if isinstance(dtype, np.dtype):
+            leaves.append(np.broadcast_to(np.zeros((), dtype),
+                                          head["shape"]))
+        else:
+            leaves.append(torch.empty(head["shape"], dtype=dtype,
+                                      device="meta"))
+        f.seek(size - 4 - head_len, 1)
+    return _decode(header["structure"], leaves)
+
+
+def read_pytree(f, like=None, put=None):
     """Read a pytree written by `write_pytree` (or serialized as
     'pytree') from the binary file `f`, one leaf at a time. Tensor leaves
     come back as CPU tensors; with `like`, a live tree holding a tensor at
     every leaf position of the saved one, each saved leaf is copied into
     its live tensor (same shape and dtype, checked), which the returned
-    tree then holds."""
+    tree then holds, before the next leaf is read. `put(live, saved)`,
+    where given, does that copy (e.g. of a sharded live tensor's own
+    block)."""
     import torch
 
     hlen = int.from_bytes(f.read(8), "little")
@@ -484,7 +510,10 @@ def read_pytree(f, like=None):
                     % ("/".join(path), head["dtype"], tuple(head["shape"]),
                        dst.dtype, tuple(dst.shape)))
             with torch.no_grad():
-                dst.copy_(t)
+                if put is None:
+                    dst.copy_(t)
+                else:
+                    put(dst, t)
             t = dst
         leaves.append(t)
     return _decode(header["structure"], leaves)

@@ -28,13 +28,13 @@ from ..models.llama import (
     check_params_device,
     layer_params,
     param_dtype,
-    resolve_device,
 )
 from ..ops.attention import NEG_INF, _broadcast_gqa
 from ..ops.matmul import matmul_f32
 from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
+from ..spmd.device import resolve_device
 
 # KV-chunk size of the flash-decode path and the pivot of the
 # attn_impl="auto" switchover (TPUFLOW_DECODE_CHUNK, read once at import)

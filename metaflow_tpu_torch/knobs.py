@@ -25,6 +25,8 @@ KNOBS = {
     "TPUFLOW_DECODE_CHUNK": ("int", 256),
     # training
     "TPUFLOW_PEAK_TFLOPS": ("float", None),
+    # ZeRO-style optimizer-state sharding over the data axis
+    "TPUFLOW_ZERO": ("bool", False),
     # knobs whose subsystem the port has not yet: setting one raises
     # (the chaos harness and the collective sanitizer, ROADMAP.md slice 5)
     "TPUFLOW_CHAOS": ("str", ""),

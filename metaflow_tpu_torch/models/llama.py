@@ -6,6 +6,13 @@ layout: per-layer weights stacked on a leading [L] axis, projections stored
 that axis; with cfg.remat each layer runs under torch.utils.checkpoint, as
 the JAX package wraps its scanned layer in jax.checkpoint, with the
 reference's remat policies.
+
+On a mesh (spmd.Mesh) the parameters are DTensors placed by the rule
+table of `logical_axes` (training.make_train_state), and each rank runs
+its rows of the batch: a weight the table shards is gathered whole just
+before the layer uses it (inside the layer's checkpoint, so the backward
+pass gathers it again and frees it after), its gradient reduce-scattered
+back to the shard, and the loss is the mean over every rank's tokens.
 """
 
 import functools
@@ -26,6 +33,10 @@ from ..ops.norms import rms_norm
 from ..ops.ring_attention import LocalRing, ring_attention
 from ..ops.rope import apply_rope, rope_frequencies
 from ..ops.ulysses_attention import ulysses_attention
+from ..spmd.collectives import all_reduce, gather_shards
+from ..spmd.device import resolve_device
+from ..spmd.mesh import Mesh, batch_group, batch_sharding
+from ..spmd.sharding import Layout, entry_axes, spec_of
 
 
 @dataclass(frozen=True)
@@ -91,17 +102,6 @@ def param_dtype(cfg):
     return getattr(torch, cfg.dtype)
 
 
-def resolve_device(device):
-    """The torch.device an entry point runs on. A CUDA device without a
-    card raises: the port never falls back to the CPU on its own."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run on the "
-            "CPU")
-    return device
-
-
 def check_params_device(params, device):
     where = params["embed"].device
     if where.type != device.type or device.index not in (None, where.index):
@@ -146,6 +146,26 @@ def init_params(cfg, generator=None, device="cuda"):
     }
 
 
+def logical_axes(cfg):
+    """Logical axis names for every parameter (same tree structure)."""
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "ffn_norm": ("layers", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def from_jax_params(np_params, cfg, device="cuda"):
     """The JAX package's parameter tree (leaves as numpy arrays, per-layer
     leaves stacked [L, ...]) as the port's parameters on `device`, in the
@@ -179,6 +199,75 @@ def layer_params(params, i):
     return {name: w[i] for name, w in params["layers"].items()}
 
 
+def _gather_dims(p, mesh, stacked=False):
+    """The (dim, group) pairs, major axis first, along which a DTensor
+    parameter's block must be gathered to make it whole; for a stacked
+    layer leaf, the dims of one layer's slice."""
+    dims = []
+    for dim, entry in enumerate(spec_of(p, mesh)):
+        for axis in entry_axes(entry):
+            if mesh.shape[axis] == 1:
+                continue
+            if stacked and dim == 0:
+                raise NotImplementedError(
+                    "a rule table that shards the stacked 'layers' axis "
+                    "(ROADMAP.md, slice 5, pipelines)")
+            dims.append((dim - stacked, mesh.group(axis)))
+    return tuple(dims)
+
+
+def _local_params(params, mesh):
+    """(this rank's blocks of the parameters, the gather dims of each
+    leaf): on a mesh each DTensor leaf becomes its local block
+    (differentiably, so its gradient lands on the DTensor); without one
+    the parameters and no dims."""
+    if not isinstance(mesh, Mesh):
+        return params, None
+    local, dims = {}, {}
+    for key, value in params.items():
+        if key == "layers":
+            local[key] = {n: w.to_local() for n, w in value.items()}
+            dims[key] = {n: _gather_dims(w, mesh, stacked=True)
+                         for n, w in value.items()}
+        else:
+            local[key] = value.to_local()
+            dims[key] = _gather_dims(value, mesh)
+    return local, dims
+
+
+def _whole(lp, dims, names):
+    """The named weights of lp made whole where the mesh shards them."""
+    if dims is None:
+        return lp
+    return dict(lp, **{n: gather_shards(lp[n], dims[n]) for n in names})
+
+
+def _rows(value, mesh, device):
+    """This rank's rows of a batch array on a mesh: a DTensor's local
+    block, or the block of a global array that every rank holds; the
+    array itself without a mesh."""
+    if hasattr(value, "to_local"):
+        return value.to_local().to(device)
+    value = torch.as_tensor(value, device=device)
+    if isinstance(mesh, Mesh):
+        value = Layout(mesh, batch_sharding(mesh), value.shape).local(value)
+    return value
+
+
+class _GlobalSum(torch.autograd.Function):
+    """x summed over every rank of the batch; the backward pass hands the
+    gradient to this rank's x unchanged, since each rank's parameter
+    gradients are then summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def _sequence_attention(cfg, q, k, v, mesh):
     """attention_impl 'ring' or 'ulysses' over the mesh's 'sequence' axis:
     'ring' rotates KV blocks (ops/ring_attention.py), 'ulysses' re-shards
@@ -195,15 +284,21 @@ def _sequence_attention(cfg, q, k, v, mesh):
         raise NotImplementedError(
             "the model runs whole sequences; a ring of one shard per "
             "process (%r) needs positions and the loss per shard "
-            "(ROADMAP.md, slice 5)" % (mesh,))
+            "(ROADMAP.md, slice 5, multi-GPU: sequence shards per rank)"
+            % (mesh,))
     if cfg.attention_impl == "ulysses":
         return ulysses_attention(q, k, v, mesh, causal=True)
     return ring_attention(q, k, v, mesh, causal=True)
 
 
-def _attention(cfg, cos, sin, x, lp, mesh=None):
+ATTENTION_WEIGHTS = ("attn_norm", "wq", "wk", "wv")
+FFN_WEIGHTS = ("wo", "ffn_norm", "w_gate", "w_up", "w_down")
+
+
+def _attention(cfg, cos, sin, x, lp, mesh=None, dims=None):
     """The attention half of a block: its output [B, S, H, Hd] for x:
     [B, S, D]."""
+    lp = _whole(lp, dims, ATTENTION_WEIGHTS)
     B, S, _ = x.shape
     H, KV, Hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -217,9 +312,10 @@ def _attention(cfg, cos, sin, x, lp, mesh=None):
     return attention(q, k, v, causal=True, impl=cfg.attention_impl)
 
 
-def _after_attention(cfg, x, attn, lp):
+def _after_attention(cfg, x, attn, lp, dims=None):
     """The rest of a block: the output projection, the residual and the
     feed-forward half."""
+    lp = _whole(lp, dims, FFN_WEIGHTS)
     B, S, _ = x.shape
     x = x + attn.reshape(B, S, -1) @ lp["wo"]
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
@@ -228,10 +324,11 @@ def _after_attention(cfg, x, attn, lp):
     return x + (gate * up) @ lp["w_down"]
 
 
-def _layer(cfg, cos, sin, x, lp, mesh=None):
-    """One transformer block; x: [B, S, D]."""
-    return _after_attention(cfg, x, _attention(cfg, cos, sin, x, lp, mesh),
-                            lp)
+def _layer(cfg, cos, sin, x, lp, mesh=None, dims=None):
+    """One transformer block; x: [B, S, D]. `dims`: the gather dims of
+    lp's sharded weights on a mesh."""
+    return _after_attention(
+        cfg, x, _attention(cfg, cos, sin, x, lp, mesh, dims), lp, dims)
 
 
 def _tokens_on(tokens, device):
@@ -261,7 +358,7 @@ def _save_products(ctx, op, *args, **kwargs):
 REMAT_POLICIES = (None, "dots", "attn_out")
 
 
-def _remat_layer(cfg, cos, sin, x, lp, mesh):
+def _remat_layer(cfg, cos, sin, x, lp, mesh, dims=None):
     """One block under cfg.remat_policy, the JAX package's policies:
     None keeps only the block's input; "dots" also keeps the outputs of
     its products without batch dims (q, k, v, the output projection, gate,
@@ -273,46 +370,71 @@ def _remat_layer(cfg, cos, sin, x, lp, mesh):
     policies."""
     policy = cfg.remat_policy
     if policy is None:
-        return _remat(_layer, cfg, cos, sin, x, lp, mesh)
+        return _remat(_layer, cfg, cos, sin, x, lp, mesh, dims)
     if policy == "dots":
-        return _remat(_layer, cfg, cos, sin, x, lp, mesh,
+        return _remat(_layer, cfg, cos, sin, x, lp, mesh, dims,
                       context_fn=functools.partial(
                           create_selective_checkpoint_contexts,
                           _save_products))
     if policy == "attn_out":
-        attn = _remat(_attention, cfg, cos, sin, x, lp, mesh)
-        return _remat(_after_attention, cfg, x, attn, lp)
+        attn = _remat(_attention, cfg, cos, sin, x, lp, mesh, dims)
+        return _remat(_after_attention, cfg, x, attn, lp, dims)
     raise ValueError("remat_policy=%r: the policies are %s"
                      % (policy, REMAT_POLICIES))
+
+
+def _hidden_states(params, dims, tokens, cfg, device, mesh):
+    """hidden_states on local parameter blocks and their gather dims."""
+    tokens = _tokens_on(tokens, device)
+    dt = param_dtype(cfg)
+    embed = params["embed"] if dims is None else \
+        gather_shards(params["embed"], dims["embed"])
+    x = embed[tokens].to(dt)
+    del embed
+    cos, sin = rope_frequencies(
+        cfg.head_dim, tokens.shape[1], cfg.rope_theta, dtype=dt,
+        llama3_scaling=cfg.rope_llama3_scaling, device=device)
+    ldims = None if dims is None else dims["layers"]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if cfg.remat:
+            x = _remat_layer(cfg, cos, sin, x, lp, mesh, ldims)
+        else:
+            x = _layer(cfg, cos, sin, x, lp, mesh, ldims)
+    norm = params["final_norm"] if dims is None else \
+        gather_shards(params["final_norm"], dims["final_norm"])
+    return rms_norm(x, norm, cfg.norm_eps)
 
 
 def hidden_states(params, tokens, cfg, device="cuda", mesh=None):
     """tokens: [B, S] int → final-norm hidden states [B, S, D] (model
     dtype). With cfg.remat each layer's intermediates are recomputed in the
-    backward pass. `mesh` (a LocalRing) is needed only by
-    attention_impl='ring'."""
+    backward pass. `mesh`: a LocalRing for attention_impl='ring' or
+    'ulysses', or the spmd.Mesh of DTensor parameters, where the result is
+    this rank's rows."""
     device = resolve_device(device)
+    params, dims = _local_params(params, mesh)
     check_params_device(params, device)
-    tokens = _tokens_on(tokens, device)
-    dt = param_dtype(cfg)
-    x = params["embed"][tokens].to(dt)
-    cos, sin = rope_frequencies(
-        cfg.head_dim, tokens.shape[1], cfg.rope_theta, dtype=dt,
-        llama3_scaling=cfg.rope_llama3_scaling, device=device)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        if cfg.remat:
-            x = _remat_layer(cfg, cos, sin, x, lp, mesh)
-        else:
-            x = _layer(cfg, cos, sin, x, lp, mesh)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _hidden_states(params, dims, _rows(tokens, mesh, device), cfg,
+                          device, mesh)
+
+
+def _head(params, dims):
+    """The output projection, whole."""
+    if dims is None:
+        return params["lm_head"]
+    return gather_shards(params["lm_head"], dims["lm_head"])
 
 
 def forward(params, tokens, cfg, device="cuda", mesh=None):
-    """tokens: [B, S] int → logits [B, S, vocab] (float32). `mesh` is
-    needed only by attention_impl='ring'."""
-    x = hidden_states(params, tokens, cfg, device=device, mesh=mesh)
-    return matmul_f32(x, params["lm_head"])
+    """tokens: [B, S] int → logits [B, S, vocab] (float32). `mesh` as
+    hidden_states takes it."""
+    device = resolve_device(device)
+    params, dims = _local_params(params, mesh)
+    check_params_device(params, device)
+    x = _hidden_states(params, dims, _rows(tokens, mesh, device), cfg,
+                       device, mesh)
+    return matmul_f32(x, _head(params, dims))
 
 
 def _ce_sums(x, lm_head, targets, mask):
@@ -338,19 +460,26 @@ def loss_fn(params, batch, cfg, device="cuda", mesh=None):
     recomputed in the backward pass, so peak activation memory is
     [B, chunk, vocab] f32 instead of [B, S, vocab] in both passes. An
     off-size sequence snaps the chunk to the largest divisor of S that fits
-    the bound (below 32, unchunked), as the JAX package does. `mesh` is
-    needed only by attention_impl='ring'."""
+    the bound (below 32, unchunked), as the JAX package does. `mesh`: a
+    LocalRing for attention_impl='ring' or 'ulysses', or the spmd.Mesh of
+    DTensor parameters; there each rank takes its rows of the batch (a
+    DTensor's local block, or its block of a global array) and the loss is
+    the mean over every rank's tokens: the cross-entropy sums and token
+    counts are summed over the ranks before the division."""
     device = resolve_device(device)
+    params, dims = _local_params(params, mesh)
+    check_params_device(params, device)
     if "tokens" in batch:
-        tokens = _tokens_on(batch["tokens"], device)
+        tokens = _tokens_on(_rows(batch["tokens"], mesh, device), device)
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
     else:
-        inputs = _tokens_on(batch["inputs"], device)
-        targets = _tokens_on(batch["targets"], device)
+        inputs = _tokens_on(_rows(batch["inputs"], mesh, device), device)
+        targets = _tokens_on(_rows(batch["targets"], mesh, device), device)
     mask = batch.get("mask")
     if mask is not None:
-        mask = torch.as_tensor(mask, device=device)
-    x = hidden_states(params, inputs, cfg, device=device, mesh=mesh)
+        mask = _rows(mask, mesh, device)
+    x = _hidden_states(params, dims, inputs, cfg, device, mesh)
+    head = _head(params, dims)
 
     S = x.shape[1]
     chunk = cfg.loss_chunk
@@ -359,15 +488,17 @@ def loss_fn(params, batch, cfg, device="cuda", mesh=None):
         if chunk < 32:
             chunk = 0  # degenerate chunking would be slower than the win
     if not chunk or S == chunk:
-        loss_sum, count = _ce_sums(x, params["lm_head"], targets, mask)
-        return loss_sum / torch.clamp(count, min=1)
-
-    loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-    count = torch.zeros((), dtype=torch.float32, device=device)
-    for start in range(0, S, chunk):
-        sl = slice(start, start + chunk)
-        s, c = _remat(_ce_sums, x[:, sl], params["lm_head"], targets[:, sl],
-                      None if mask is None else mask[:, sl])
-        loss_sum = loss_sum + s
-        count = count + c
+        loss_sum, count = _ce_sums(x, head, targets, mask)
+    else:
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        count = torch.zeros((), dtype=torch.float32, device=device)
+        for start in range(0, S, chunk):
+            sl = slice(start, start + chunk)
+            s, c = _remat(_ce_sums, x[:, sl], head, targets[:, sl],
+                          None if mask is None else mask[:, sl])
+            loss_sum = loss_sum + s
+            count = count + c
+    if isinstance(mesh, Mesh):
+        loss_sum, count = _GlobalSum.apply(torch.stack([loss_sum, count]),
+                                           batch_group(mesh))
     return loss_sum / torch.clamp(count, min=1)

@@ -17,9 +17,9 @@ from ..ops.matmul import matmul_f32
 from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_frequencies
+from ..spmd.device import resolve_device
 from .llama import (_remat, _tokens_on, check_params_device,
-                    from_jax_params, layer_params, num_params, param_dtype,
-                    resolve_device)
+                    from_jax_params, layer_params, num_params, param_dtype)
 
 __all__ = ["MixtralConfig", "check_params_device", "forward",
            "from_jax_params", "init_params", "loss_fn", "num_params"]

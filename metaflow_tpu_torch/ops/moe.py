@@ -25,8 +25,8 @@ from .matmul import matmul_f32
 from .gmm import gather_rows, gmm, make_group_layout, scatter_rows
 
 _NOT_PORTED = ("dispatch='gmm_ep' and expert meshes need expert parallelism "
-               "across GPUs, which is not ported yet (ROADMAP.md, slice 5: "
-               "multi-GPU)")
+               "across GPUs, which is not ported yet (ROADMAP.md, slice 5, "
+               "multi-GPU: gmm_ep)")
 
 
 def top_k_router(logits, num_experts, k, dtype=torch.float32):

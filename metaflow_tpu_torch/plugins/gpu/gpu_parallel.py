@@ -15,6 +15,11 @@ rank takes card `node_index % device_count`; on a host without one it
 is gloo alone. So a @gpu step that keeps some tensors on the CPU, and a
 step without @gpu that puts its tensors on the card, both reduce them
 where they lie.
+
+A gang step builds its mesh on this group: `create_mesh(MeshSpec.fsdp())`
+(spmd/mesh.py) lays the gang's ranks out on the mesh's axes, one card
+each; a gang of one node gets no group here, and create_mesh makes a
+group of its one rank.
 """
 
 from ..parallel_decorator import ParallelDecorator
@@ -70,11 +75,10 @@ class GpuParallelDecorator(ParallelDecorator):
             handler.install()
 
     def teardown_distributed_env(self, flow):
-        from ...current import current
+        """Destroy the step's group: the gang's, or the one-rank group a
+        one-node gang's create_mesh made."""
+        import sys
 
-        if current.parallel.num_nodes <= 1:
-            return
-        import torch.distributed as dist
-
-        if dist.is_initialized():
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_initialized():
             dist.destroy_process_group()

@@ -40,8 +40,9 @@ from ..inference.decode import (
     init_kv_cache,
     request_step_keys,
 )
-from ..models.llama import check_params_device, resolve_device
+from ..models.llama import check_params_device
 from ..ops.attention import NEG_INF
+from ..spmd.device import resolve_device
 
 
 def sample_slots(logits, seeds, temperature, top_k, top_p, generator=None):

@@ -80,11 +80,11 @@ from ..models.llama import (
     check_params_device,
     layer_params,
     param_dtype,
-    resolve_device,
 )
 from ..ops.matmul import matmul_f32
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_frequencies
+from ..spmd.device import resolve_device
 from .engine import sample_slots
 
 DEFAULT_PAGE_TOKENS = 16

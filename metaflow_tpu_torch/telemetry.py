@@ -53,6 +53,14 @@ _current = None
 
 
 def _rank_from_env():
+    """The gang rank (MF_PARALLEL_NODE_INDEX); outside a gang, the rank of
+    an initialised torch.distributed group, so a mesh step's records carry
+    their rank either way; else 0."""
+    if "MF_PARALLEL_NODE_INDEX" not in os.environ:
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() and \
+                dist.is_initialized():
+            return dist.get_rank()
     try:
         return int(os.environ.get("MF_PARALLEL_NODE_INDEX", "0"))
     except ValueError:

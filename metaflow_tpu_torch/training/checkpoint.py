@@ -23,6 +23,19 @@ Contract (the reference's):
     ones (same tree, shapes and dtypes, checked), so a trainer resumes in
     the memory it was built in.
 
+A sharded state (DTensor leaves, a trainer's on a mesh) is saved whole:
+each leaf is all-gathered in turn, and only rank 0 of the group keeps the
+host copy and writes the blob, so the file is the unsharded tree in the
+reference's format and reads the same on any mesh or off one. Every rank
+calls save(); wait() is then a barrier of the group, after which the
+checkpoint is durable for every rank. Rank 0 holds the whole state on
+the host while it writes (and keeps those pinned buffers for the next
+save): the host needs the state's bytes free beside the serialized blob.
+`restore(like=)` streams the blob one leaf at a time: each rank holds one
+whole leaf on the host at once and keeps its blocks under the live
+placements (another mesh than the saving one's, or ZeRO on where it was
+off, included).
+
 The datastore is duck-typed: anything with `.flow_name`, `.storage`
 (`path_join`, `basename`, `save_bytes`, `load_bytes`, `list_content`,
 `delete`) and `.ca_store` (`save_blobs`, `load_blobs`), such as the
@@ -65,6 +78,9 @@ class AsyncCheckpointManager:
         # pinned host buffers of the last snapshot, by tree path: reused by
         # the next save, which starts only after the last write is done
         self._host = {}
+        # the last save was of a sharded state: wait() ends with a barrier
+        # of the group, so every rank sees the checkpoint rank 0 writes
+        self._sharded = False
         # the last restore()'s Checkpoint: a trainer built with
         # make_trainer(checkpoint=...) reads the resumed step and the data
         # stream's stamp here
@@ -77,9 +93,13 @@ class AsyncCheckpointManager:
         snapshot is on the host. `extra` (JSON-able, e.g. the data stream's
         resume stamp) rides in the manifest. Serialization and the writes
         happen in the background; their errors surface at the next
-        save()/wait()/done()."""
+        save()/wait()/done(). A sharded state is gathered and written by
+        rank 0 alone; every rank calls save()."""
         self.wait()  # one save in flight
-        host = self._snapshot(state)
+        host, sharded = self._snapshot(state)
+        self._sharded = sharded
+        if sharded and not _writer():
+            return
         t = threading.Thread(target=self._persist,
                              args=(host, int(step), extra),
                              name="ckpt-persist", daemon=True)
@@ -88,10 +108,13 @@ class AsyncCheckpointManager:
         t.start()
 
     def _snapshot(self, state):
-        """A host copy of `state`: every tensor copied into a pinned host
-        buffer (a CPU tensor into a new one), all copies issued before any
-        is waited for."""
+        """(a host copy of `state`, whether it was sharded): every tensor
+        copied into a pinned host buffer (a CPU tensor into a new one), all
+        copies issued before any is waited for. A DTensor leaf is gathered
+        whole first, and only the writing rank keeps its copy."""
         issued = []
+        sharded = []
+        keep = _writer()
 
         def copy(node, path):
             if isinstance(node, dict):
@@ -99,6 +122,11 @@ class AsyncCheckpointManager:
             if not isinstance(node, torch.Tensor):
                 return node
             node = node.detach()
+            if hasattr(node, "full_tensor"):
+                sharded.append(path)
+                node = node.full_tensor()
+                if not keep:
+                    return None
             if not node.is_cuda:
                 return node.clone()
             buf = self._host.get(path)
@@ -111,10 +139,11 @@ class AsyncCheckpointManager:
             issued.append(node.device)
             return buf
 
-        host = copy(state, ())
+        with torch.no_grad():
+            host = copy(state, ())
         for device in set(issued):
             torch.cuda.current_stream(device).synchronize()
-        return host
+        return host, bool(sharded)
 
     def _persist(self, host_state, step, extra):
         try:
@@ -135,7 +164,18 @@ class AsyncCheckpointManager:
 
     def wait(self):
         """Block until the in-flight write (if any) ends; re-raise its
-        error. After wait() returns, the last save is durable."""
+        error. After wait() returns, the last save is durable (after a
+        sharded save, for every rank of the group: each must call
+        wait())."""
+        self._join()
+        if self._sharded:
+            self._sharded = False
+            import torch.distributed as dist
+
+            dist.barrier()
+        self._raise_pending()
+
+    def _join(self):
         with self._lock:
             t = self._thread
         if t is not None:
@@ -143,7 +183,6 @@ class AsyncCheckpointManager:
             with self._lock:
                 if self._thread is t:
                     self._thread = None
-        self._raise_pending()
 
     def done(self):
         """Non-blocking: True when no write is in flight. Re-raises a
@@ -153,7 +192,8 @@ class AsyncCheckpointManager:
             t = self._thread
         if t is not None and t.is_alive():
             return False
-        self.wait()
+        self._join()
+        self._raise_pending()
         return True
 
     def _raise_pending(self):
@@ -197,7 +237,11 @@ class AsyncCheckpointManager:
         state's tensors are CPU tensors; with `like` (a live state of the
         same tree) they are copied into like's tensors, which the returned
         state then holds, and its scalars (counts, the step) are the
-        restored ones."""
+        restored ones. A DTensor of `like` gets this rank's block of the
+        restored tensor under its own placements. After a sharded save,
+        every rank waits for it (wait()) first."""
+        if self._sharded:
+            self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -205,13 +249,23 @@ class AsyncCheckpointManager:
         manifest = self._load_manifest(step)
         if manifest is None:
             return None
-        state = None
-        for _key, blob in self._ca.load_blobs([manifest["key"]],
-                                              cacheable=False):
-            state = serializers.deserialize(blob, manifest["type_tag"])
-        if like is not None:
-            _check_like(state, like, step)
-            state = _copy_into(state, like)
+        if like is not None and manifest["type_tag"] == \
+                serializers.TYPE_PYTREE:
+            # one leaf on the host at a time, copied (a DTensor: its
+            # block) into the live state before the next is read; the
+            # tree, shapes and dtypes checked before any is
+            with self._ca.open_blob_stream(manifest["key"]) as f:
+                _check_like(serializers.pytree_skeleton(f), like, step)
+            with self._ca.open_blob_stream(manifest["key"]) as f:
+                state = serializers.read_pytree(f, like=like, put=_put)
+        else:
+            state = None
+            for _key, blob in self._ca.load_blobs([manifest["key"]],
+                                                  cacheable=False):
+                state = serializers.deserialize(blob, manifest["type_tag"])
+            if like is not None:
+                _check_like(state, like, step)
+                state = _copy_into(state, like)
         ck = Checkpoint(state, manifest["step"], manifest.get("extra"))
         self.last_restored = ck
         return ck
@@ -267,11 +321,31 @@ def _check_like(state, like, step):
 
 @torch.no_grad()
 def _copy_into(state, like):
-    """like's tree with each tensor overwritten by the restored one, and
-    the restored scalars."""
+    """like's tree with each tensor overwritten by the restored one (a
+    DTensor's local block by its block of it), and the restored
+    scalars."""
     if isinstance(like, dict):
         return {k: _copy_into(state[k], v) for k, v in like.items()}
     if isinstance(like, torch.Tensor):
-        like.copy_(state)
+        _put(like, state)
         return like
     return state
+
+
+def _put(live, restored):
+    """Copy a restored whole tensor into a live one; a DTensor's local
+    block takes its block of it."""
+    if hasattr(live, "to_local"):
+        from .train_step import reshard_like
+
+        live.to_local().copy_(reshard_like(restored, live).to_local())
+    else:
+        live.copy_(restored)
+
+
+def _writer():
+    """Whether this process writes a sharded state's checkpoint: rank 0 of
+    the group, or a process outside any group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0

@@ -1,12 +1,13 @@
 """Input pipeline: resumable token batches and prefetch onto the card.
 
-The JAX package's training/data.py for one GPU. ResumableTokenBatches
-carries explicit state (epoch, batch cursor, shuffle seed) and stamps it
-onto every batch: checkpoint the stamp with the model and a preempted run
+The JAX package's training/data.py. ResumableTokenBatches carries
+explicit state (epoch, batch cursor, shuffle seed) and stamps it onto
+every batch: checkpoint the stamp with the model and a preempted run
 resumes its token sequence exactly, no replay, no skip. `prefetch` runs
 the iterator one or more batches ahead in a thread and, given a device,
-puts each batch there while the current step runs. Mesh placement
-(shard_iterator, sharded_dataset) waits for the multi-GPU slice.
+puts each batch there while the current step runs. On a mesh,
+shard_iterator and sharded_dataset give each rank its rows of every
+global batch.
 """
 
 import collections
@@ -187,26 +188,6 @@ def token_batches(data, batch_size, seq_len, *, rng=None, drop_last=True):
         yield {"tokens": np.stack(batch)}
 
 
-def token_batches(data, batch_size, seq_len, *, rng=None, drop_last=True):
-    """Yield {'tokens': [B, seq_len+1]} batches from a 1-D token array
-    (next-token LM convention: targets are inputs shifted by one)."""
-    data = np.asarray(data)
-    window = seq_len + 1
-    n_windows = len(data) // window
-    order = np.arange(n_windows)
-    if rng is not None:
-        rng.shuffle(order)
-    batch = []
-    for idx in order:
-        batch.append(data[idx * window:(idx + 1) * window])
-        if len(batch) == batch_size:
-            yield {"tokens": np.stack(batch)}
-            batch = []
-    if batch and not drop_last:
-        yield {"tokens": np.stack(batch)}
-
-
-
 def prefetch(iterator, depth=2, device=None):
     """Run `iterator` in a background thread, keeping `depth` items ready.
 
@@ -307,3 +288,51 @@ def _handed_over(item, device):
         if key != STATE_KEY:
             value.record_stream(current)
     return batch
+
+
+def shard_iterator(it, mesh):
+    """Place each host batch onto the mesh (training.shard_batch: this
+    rank's rows of every array, as DTensors on the mesh's device). The
+    STATE_KEY resume stamp stays host-side, untouched."""
+    from .train_step import shard_batch
+
+    for batch in it:
+        batch = dict(batch)
+        state = batch.pop(STATE_KEY, None)
+        batch = shard_batch(batch, mesh)
+        if state is not None:
+            batch[STATE_KEY] = state
+        yield batch
+
+
+def sharded_dataset(data, batch_size, seq_len, mesh, rng=None,
+                    prefetch_depth=2, seed=None, state=None, epochs=None,
+                    drop_last=True, corpus=None):
+    """Batching -> mesh placement -> background prefetch, composed; every
+    rank builds the same global batches and keeps its rows.
+
+    With `seed` (and optionally a checkpointed `state` stamp to resume
+    from), batches come from ResumableTokenBatches and carry their
+    STATE_KEY resume stamp; without, token_batches' single unstamped
+    epoch (`rng` shuffles it).
+
+    corpus: a data.StreamingTokenBatches (or any source honoring the
+    same restore/iterate contract), the on-datastore streaming path;
+    `data`/`seed`/`epochs`/`drop_last` are ignored (they live on the
+    corpus), `state` resumes it."""
+    if corpus is not None:
+        if state is not None:
+            corpus.restore(state)
+        source = iter(corpus)
+    elif seed is not None or state is not None:
+        ds = ResumableTokenBatches(data, batch_size, seq_len,
+                                   seed=seed if seed is not None
+                                   else (state or {}).get("seed"),
+                                   epochs=epochs, drop_last=drop_last)
+        if state is not None:
+            ds.restore(state)
+        source = iter(ds)
+    else:
+        source = token_batches(data, batch_size, seq_len, rng=rng,
+                               drop_last=drop_last)
+    return prefetch(shard_iterator(source, mesh), depth=prefetch_depth)

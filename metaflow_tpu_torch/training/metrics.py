@@ -78,19 +78,20 @@ def _libraries_loaded():
 
 
 def _tensors(tree):
-    """The tensors of a tensor or a nested dict (other leaves skipped)."""
+    """The tensors of a tensor or a nested dict (other leaves skipped); of
+    a DTensor (a state on a mesh), this rank's block."""
     import torch
 
     if isinstance(tree, torch.Tensor):
-        yield tree
+        yield tree.to_local() if hasattr(tree, "to_local") else tree
     elif isinstance(tree, dict):
         for key in sorted(tree):
             yield from _tensors(tree[key])
 
 
 def _tree_device_bytes(tree):
-    """Resident bytes of the tensors of a tree (each counted whole: one
-    device holds every leaf)."""
+    """Resident bytes of the tensors of a tree on this rank's device (a
+    DTensor's block only)."""
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 

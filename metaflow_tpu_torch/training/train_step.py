@@ -25,7 +25,20 @@ import numpy as np
 import torch
 
 from .. import knobs
-from ..models.llama import resolve_device
+from ..spmd.collectives import all_reduce
+from ..spmd.device import resolve_device
+from ..spmd.mesh import Mesh, batch_sharding, check_supported, data_axes
+from ..spmd.sharding import (
+    Layout,
+    rules_for_mesh,
+    spec_axes,
+    spec_of,
+    tree_specs,
+    zero_constrain,
+    zero_enabled,
+    zero_spec,
+    zero_update_axis,
+)
 
 
 def _lr_schedule(lr, warmup_steps, total_steps):
@@ -59,9 +72,15 @@ def leaves(tree, prefix=()):
             yield prefix + (key,), value
 
 
-def _map(fn, tree):
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _map(fn, tree, *rest):
+    """fn over the leaves of `tree` (and the matching leaves of the trees
+    of one structure in `rest`)."""
+    out = {}
+    for k, v in tree.items():
+        others = [r[k] for r in rest]
+        out[k] = _map(fn, v, *others) if isinstance(v, dict) else \
+            fn(v, *others)
+    return out
 
 
 def _bf16(x):
@@ -77,20 +96,30 @@ def _as_bf16(value):
     return float(torch.tensor(value, dtype=torch.float32).to(torch.bfloat16))
 
 
-def global_norm(tensors):
+def global_norm(tensors, layouts=None):
     """optax.global_norm: the square root of the summed squares of every
     tensor, as an f32 tensor. For f32 tensors the sums are f32 throughout.
     For bf16 tensors it is what the reference's jitted program computes:
     each tensor's squares summed in f32 and the sum rounded to bf16, the
     tensors' sums added one by one in bf16, the square root rounded to
-    bf16. The tensors share one dtype."""
-    total, dtype = None, None
+    bf16. The tensors share one dtype.
+
+    layouts: on a mesh, each tensor's Layout (spmd/sharding.py); a
+    tensor's f32 sum over this rank's block is summed over every rank
+    holding another block of it before it is rounded, so the norm is the
+    global one on every rank."""
+    tensors = list(tensors)
+    dtype = None
     for t in tensors:
         if dtype is not None and t.dtype != dtype:
             raise ValueError("global_norm: tensors of dtypes %s and %s"
                              % (dtype, t.dtype))
         dtype = t.dtype
-        sq = t.float().square().sum()
+    sums = [t.float().square().sum() for t in tensors]
+    if layouts is not None:
+        sums = _sum_over_shards(sums, layouts)
+    total = None
+    for sq in sums:
         if dtype == torch.bfloat16:
             sq = _bf16(sq)
             total = sq if total is None else _bf16(total + sq)
@@ -98,6 +127,32 @@ def global_norm(tensors):
             total = sq if total is None else total + sq
     norm = torch.sqrt(total)
     return _bf16(norm) if dtype == torch.bfloat16 else norm
+
+
+def _sum_over_shards(sums, layouts):
+    """Per-tensor sums over this rank's blocks, each summed over the ranks
+    holding the tensor's other blocks: one all-reduce per mesh axis for
+    the tensors split over the same axes."""
+    by_axes = {}
+    for i, layout in enumerate(layouts):
+        axes = layout.axes(range(len(layout.shape)))
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    sums = list(sums)
+    for axes, idx in by_axes.items():
+        stacked = torch.stack([sums[i] for i in idx])
+        layouts[idx[0]].sum(stacked, range(len(layouts[idx[0]].shape)))
+        for j, i in enumerate(idx):
+            sums[i] = stacked[j]
+    return sums
+
+
+def _leaf_layouts(layouts, paths):
+    """The layouts of a tree's leaves in `paths` order, or None."""
+    if layouts is None:
+        return None
+    by_path = dict(leaves(layouts))
+    return [by_path[p] for p in paths]
 
 
 @dataclass(frozen=True)
@@ -115,16 +170,30 @@ class AdamW:
     clip_norm: float = 1.0
     mu_dtype: torch.dtype = torch.float32
 
-    def init(self, params):
+    def init(self, params, layouts=None):
         """{'count': 0, 'mu': zeros in mu_dtype, 'nu': zeros in each
-        parameter's dtype}, on the parameters' device."""
+        parameter's dtype}, on the parameters' device. With `layouts` (a
+        tree of each leaf's Layout on a mesh) the moments are this rank's
+        blocks of those layouts."""
+        if layouts is not None:
+            return {"count": 0,
+                    "mu": _map(lambda p, lay: torch.zeros(
+                        lay.local_shape(), dtype=self.mu_dtype,
+                        device=p.device), params, layouts),
+                    "nu": _map(lambda p, lay: torch.zeros(
+                        lay.local_shape(), dtype=p.dtype, device=p.device),
+                        params, layouts)}
         return {"count": 0,
                 "mu": _map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype),
                            params),
                 "nu": _map(torch.zeros_like, params)}
 
+    def state_layouts(self, layouts):
+        """The Layout tree of each moment, for the parameters' `layouts`."""
+        return {"mu": layouts, "nu": layouts}
+
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, layouts=None):
         """One step on params (a dict of tensors) with grads (the same
         tree), in place. Returns the global norm of the unclipped grads.
 
@@ -151,14 +220,19 @@ class AdamW:
         a bf16 result to f32). It also rewrites (mu / bc1) / d as
         mu / (bc1 d). This update makes the same roundings in the same
         order, so parameters and nu come out bit for bit and mu within f32
-        rounding (tests/test_torch_train.py)."""
+        rounding (tests/test_torch_train.py).
+
+        layouts: on a mesh, the tree of each leaf's Layout; the tensors
+        are this rank's blocks and the global norm sums over every
+        block."""
         pairs = list(zip(leaves(params), leaves(grads), leaves(state["mu"]),
                          leaves(state["nu"])))
         for (path, _), (gpath, _), (mpath, _), (npath, _) in pairs:
             if not path == gpath == mpath == npath:
                 raise ValueError("params, grads and optimizer state differ "
                                  "in structure at %s" % "/".join(path))
-        norm = global_norm(g for _, (_, g), _, _ in pairs)
+        norm = global_norm((g for _, (_, g), _, _ in pairs), _leaf_layouts(
+            layouts, [path for (path, _), *_ in pairs]))
         low = bool(pairs) and pairs[0][1][1].dtype == torch.bfloat16
         trigger = norm < (_as_bf16(self.clip_norm) if low else self.clip_norm)
         count = state["count"] + 1
@@ -280,12 +354,15 @@ class Adafactor:
     weight_decay: float = 0.1
     clip_norm: float = 1.0
 
-    def init(self, params):
+    def init(self, params, layouts=None):
         """{'count': 0, 'v_row', 'v_col', 'v': optax's factored state in
         each parameter's dtype (a factored leaf keeps v_row, the mean over
         its largest axis, and v_col, the mean over its second largest; the
         others keep v; each unused slot is a zero of shape (1,), as optax
-        keeps it), 'mu': bf16 zeros}, on the parameters' device."""
+        keeps it), 'mu': bf16 zeros}, on the parameters' device. With
+        `layouts` (a tree of each leaf's Layout on a mesh) the axes are
+        chosen by the global shapes and each slot is this rank's block of
+        its layout (state_layouts)."""
 
         def slot(p, which):
             dims = factored_dims(tuple(p.shape))
@@ -299,14 +376,45 @@ class Adafactor:
             return torch.zeros(shape, dtype=p.dtype, device=p.device)
 
         state = {"count": 0}
+        if layouts is not None:
+            slots = self.state_layouts(layouts)
+            for which in ("v_row", "v_col", "v"):
+                state[which] = _map(lambda p, lay: torch.zeros(
+                    lay.local_shape(), dtype=p.dtype, device=p.device),
+                    params, slots[which])
+            state["mu"] = _map(lambda p, lay: torch.zeros(
+                lay.local_shape(), dtype=torch.bfloat16, device=p.device),
+                params, layouts)
+            return state
         for which in ("v_row", "v_col", "v"):
             state[which] = _map(functools.partial(slot, which=which), params)
         state["mu"] = _map(
             lambda p: torch.zeros_like(p, dtype=torch.bfloat16), params)
         return state
 
+    def state_layouts(self, layouts):
+        """The Layout tree of each slot, for the parameters' `layouts`: a
+        factored leaf's v_row and v_col lie as the leaf does without the
+        axis their mean was taken over; an unused (1,) slot is
+        replicated."""
+        from ..spmd.sharding import Layout
+
+        def slot(lay, which):
+            dims = factored_dims(lay.shape)
+            unused = Layout(lay.mesh, (None,), (1,))
+            if dims is None:
+                return lay if which == "v" else unused
+            if which == "v":
+                return unused
+            return lay.drop(dims[1] if which == "v_row" else dims[0])
+
+        out = {which: _map(functools.partial(slot, which=which), layouts)
+               for which in ("v_row", "v_col", "v")}
+        out["mu"] = layouts
+        return out
+
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, layouts=None):
         """One step on params with grads (the same tree), in place. Returns
         the global norm of the unclipped grads.
 
@@ -330,7 +438,13 @@ class Adafactor:
         from the jitted step's HLO). The leaves' temporaries are held to
         UPDATE_CHUNK elements: a factored leaf is walked one [rows, cols]
         slice of its kept axes at a time and each slice in row chunks, the
-        column sums accumulated in f32 across them."""
+        column sums accumulated in f32 across them.
+
+        layouts: on a mesh, the tree of each leaf's Layout; the tensors are
+        this rank's blocks, the axes are chosen by the global shape, and
+        the global norm and each mean over an axis the mesh splits are
+        summed over the ranks holding its other blocks (under GSPMD the
+        reference computes them globally too)."""
         pairs = list(zip(leaves(params), leaves(grads),
                          *(leaves(state[k]) for k in ("v_row", "v_col", "v",
                                                       "mu"))))
@@ -339,7 +453,8 @@ class Adafactor:
             if any(path != paths[0] for path in paths):
                 raise ValueError("params, grads and optimizer state differ "
                                  "in structure at %s" % "/".join(paths[0]))
-        norm = global_norm(g for _, (_, g), *_ in pairs)
+        lays = _leaf_layouts(layouts, [item[0][0] for item in pairs])
+        norm = global_norm((g for _, (_, g), *_ in pairs), lays)
         low = bool(pairs) and pairs[0][1][1].dtype == torch.bfloat16
         trigger = norm < (_as_bf16(self.clip_norm) if low
                           else self.clip_norm)
@@ -349,13 +464,15 @@ class Adafactor:
         lr = self.schedule(count)
         wd_lr = float(f32(lr) * f32(self.weight_decay))
         step = _FactoredStep(self, norm, trigger, decay, lr, wd_lr)
-        for (_, p), (_, g), (_, vr), (_, vc), (_, v), (_, mu) in pairs:
-            dims = factored_dims(tuple(p.shape))
+        for i, ((_, p), (_, g), (_, vr), (_, vc), (_, v), (_, mu)) in \
+                enumerate(pairs):
+            layout = lays[i] if lays else None
+            dims = factored_dims(layout.shape if layout else tuple(p.shape))
             if dims is None:
                 for chunk in _update_chunks(p, g, v, mu):
                     step.unfactored(*chunk)
             else:
-                step.factored(p, g, vr, vc, mu, *dims)
+                step.factored(p, g, vr, vc, mu, *dims, layout=layout)
         state["count"] = count + 1
         return norm
 
@@ -399,10 +516,14 @@ class _FactoredStep:
         v.copy_(v_new)
         self._tail(p, g * _rsqrt(v_new), mu)
 
-    def factored(self, p, g, v_row, v_col, mu, d1, d0):
+    def factored(self, p, g, v_row, v_col, mu, d1, d0, layout=None):
         """A leaf factored over (d1, d0): each slice of its kept axes is a
         [R, C] matrix, R = shape[d1] rows and C = shape[d0] columns;
-        v_row's slice is [R] (the mean over C), v_col's [C]."""
+        v_row's slice is [R] (the mean over C), v_col's [C]. On a mesh
+        (`layout`) p is this rank's block: R and C are the global sizes,
+        and the row sums, the column sums and the sum of the new v_row are
+        summed over the ranks holding the other blocks of the axes they
+        run over."""
         kept = [i for i in range(p.ndim) if i not in (d1, d0)]
         perm = kept + [d1, d0]
         # v_row lacks d0 and v_col lacks d1; both keep the other axes in
@@ -411,26 +532,36 @@ class _FactoredStep:
         col_perm = [sorted(kept + [d0]).index(i) for i in kept + [d0]]
         pv, gv, mv = (t.permute(perm) for t in (p, g, mu))
         rv, cv = v_row.permute(row_perm), v_col.permute(col_perm)
-        R, C = p.shape[d1], p.shape[d0]
-        rows = max(1, UPDATE_CHUNK // C)
+        shape = layout.shape if layout else p.shape
+        R, C = shape[d1], shape[d0]
+        rows_here, cols_here = p.shape[d1], p.shape[d0]
+        rows = max(1, UPDATE_CHUNK // cols_here)
         dtype = p.dtype
+
+        def over(t, dim):  # t summed over every block of `dim`
+            return t if layout is None else layout.sum(t, [dim])
+
         for idx in np.ndindex(*[p.shape[i] for i in kept]):
             gs, ps, ms, rs, cs = (t[idx] for t in (gv, pv, mv, rv, cv))
-            row_mean = torch.empty(R, dtype=torch.float32, device=p.device)
-            col_sum = torch.zeros(C, dtype=torch.float32, device=p.device)
-            for r in range(0, R, rows):
+            row_sum = torch.empty(rows_here, dtype=torch.float32,
+                                  device=p.device)
+            col_sum = torch.zeros(cols_here, dtype=torch.float32,
+                                  device=p.device)
+            for r in range(0, rows_here, rows):
                 sq = self._square(self._clipped(gs[r:r + rows])).float()
-                row_mean[r:r + rows] = sq.sum(1) / C
+                row_sum[r:r + rows] = sq.sum(1)
                 col_sum += sq.sum(0)
+            row_mean = over(row_sum, d0) / C
             # the means round to the leaf's dtype (jnp.mean sums in f32)
             row_new = self._ema(rs, row_mean.to(dtype)).to(dtype)
-            col_new = self._ema(cs, (col_sum / R).to(dtype)).to(dtype)
+            col_new = self._ema(cs, (over(col_sum, d1) / R).to(dtype)).to(
+                dtype)
             rs.copy_(row_new)
             cs.copy_(col_new)
-            row_col_mean = (row_new.float().sum() / R).to(dtype)
+            row_col_mean = (over(row_new.float().sum(), d1) / R).to(dtype)
             row_factor = _rsqrt(row_new / row_col_mean)
             col_factor = _rsqrt(col_new)
-            for r in range(0, R, rows):
+            for r in range(0, rows_here, rows):
                 g = self._clipped(gs[r:r + rows])
                 u = g * row_factor[r:r + rows, None] * col_factor[None, :]
                 self._tail(ps[r:r + rows], u, ms[r:r + rows])
@@ -461,7 +592,7 @@ def check_opt_state(optimizer, state):
     memory) and compares keys, shapes and dtypes with state['opt_state'];
     it raises a ValueError that names the mismatch, and the optimizer a
     state of other keys was built by (AdamW's against Adafactor's)."""
-    meta = _map(lambda p: torch.empty_like(p, device="meta"),
+    meta = _map(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
                 state["params"])
     expect = optimizer.init(meta)
     got = state["opt_state"]
@@ -495,13 +626,24 @@ def check_opt_state(optimizer, state):
 
 
 def make_train_state(cfg, model, optimizer=None, params=None, generator=None,
-                     device="cuda"):
+                     device="cuda", mesh=None, rules=None, zero=None):
     """{'params', 'opt_state', 'step'} on `device`. `params` starts from
     given weights (e.g. from_jax_params output, which must live on
     `device`); otherwise model.init_params(cfg, generator, device). The
-    parameters are made leaves that require grad."""
-    device = resolve_device(device)
+    parameters are made leaves that require grad.
+
+    On a mesh (spmd.Mesh; `device` then names its device type) the state
+    is placed by the rule table (`rules`, default rules_for_mesh) over the
+    model's logical_axes: every rank builds (or is given) the same global
+    parameters and keeps its block of each as a DTensor; the optimizer
+    state lies as its parameter does or, with ZeRO (`zero`, default the
+    TPUFLOW_ZERO knob; off on a mesh without a data axis), split over the
+    data axis as well (spmd/sharding.py zero_spec)."""
     optimizer = optimizer or default_optimizer()
+    if isinstance(mesh, Mesh):
+        return _mesh_train_state(cfg, model, optimizer, params, generator,
+                                 device, mesh, rules, zero)
+    device = resolve_device(device)
     if params is None:
         params = model.init_params(cfg, generator, device=device)
     model.check_params_device(params, device)
@@ -509,6 +651,59 @@ def make_train_state(cfg, model, optimizer=None, params=None, generator=None,
         p.requires_grad_(True)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": 0}
+
+
+def _mesh_device(mesh, device):
+    """The device of this rank on `mesh` (which must lie on `device`'s
+    type); a mesh axis the port does not train over raises."""
+    check_supported(mesh.shape)
+    device = resolve_device(device)
+    if device.type != mesh.device.type:
+        raise ValueError("the mesh lies on %s, not on %s"
+                         % (mesh.device, device))
+    return mesh.device
+
+
+def _param_layouts(params, mesh, specs):
+    """The Layout tree of global parameters under `specs`."""
+    return _map(lambda p, spec: Layout(mesh, spec, p.shape), params, specs)
+
+
+def _zero_layouts(layouts, mesh):
+    """The layouts of the sharded update: each leaf's spec extended over
+    the data axis (zero_spec)."""
+    return _map(lambda lay: Layout(mesh, zero_spec(lay.spec, lay.shape,
+                                                   mesh), lay.shape),
+                layouts)
+
+
+def _mesh_train_state(cfg, model, optimizer, params, generator, device,
+                      mesh, rules, zero):
+    device = _mesh_device(mesh, device)
+    rules = rules or rules_for_mesh(mesh)
+    if params is None:
+        params = model.init_params(cfg, generator, device=device)
+    layouts = _param_layouts(params, mesh,
+                             tree_specs(model.logical_axes(cfg), rules))
+    local = _map(lambda p, lay: lay.local(p.detach().to(device)), params,
+                 layouts)
+    del params
+    opt_layouts = layouts
+    if zero_enabled(mesh, zero):
+        opt_layouts = _zero_layouts(layouts, mesh)
+    opt_local = optimizer.init(local, layouts=opt_layouts)
+    state_layouts = optimizer.state_layouts(opt_layouts)
+    opt_state = {k: v if k == "count" else _map(
+        lambda t, lay: lay.dtensor(t), v, state_layouts[k])
+        for k, v in opt_local.items()}
+    params = _map(lambda t, lay: lay.dtensor(t).requires_grad_(True),
+                  local, layouts)
+    return {"params": params, "opt_state": opt_state, "step": 0}
+
+
+def _local(t):
+    """A DTensor's local block (without autograd), or t."""
+    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _with_mesh(loss_fn, mesh):
@@ -528,11 +723,22 @@ def _fence(device):
 
 
 def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
-                    mesh=None, timed_update=False):
+                    mesh=None, timed_update=False, zero=None):
     """The train step: (state, batch) -> (state, {'loss', 'grad_norm'}),
     both 0-dim f32 tensors on the device. The step updates the state's
     parameters and moments in place and returns the same dict. `mesh`
-    (e.g. a LocalRing for attention_impl='ring') goes to loss_fn.
+    goes to loss_fn: a LocalRing for attention_impl='ring' or 'ulysses',
+    or the spmd.Mesh a state of make_train_state(mesh=) lies on.
+
+    On a mesh each rank runs its rows of the batch (a batch of DTensors
+    from shard_batch, or a global batch every rank holds) and the
+    gradients are summed over the ranks: over `fsdp` by the parameter
+    gather's reduce-scatter in the backward pass, over `data` by an
+    all-reduce here. With ZeRO (`zero`, as make_train_state takes it) the
+    data-axis sum is a reduce-scatter instead: each rank updates its 1/N
+    block of every parameter with its block of the optimizer state, and
+    the updated blocks are all-gathered back (the JAX step's reduce_scatter,
+    shard and all_gather phases).
 
     timed_update: the JAX package's diagnostic split: the backward first,
     then the optimizer update, with a fence (the device's work waited
@@ -544,9 +750,14 @@ def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
 
     `optimizer` must be the one the state was built with; make_trainer
     shares one and checks it."""
-    device = resolve_device(device)
     optimizer = optimizer or default_optimizer()
     loss_fn = _with_mesh(loss_fn or model.loss_fn, mesh)
+    if isinstance(mesh, Mesh):
+        device = _mesh_device(mesh, device)
+        update = _mesh_update(optimizer, mesh, zero_enabled(mesh, zero))
+    else:
+        device = resolve_device(device)
+        update = optimizer.update
 
     def step(state, batch):
         params = state["params"]
@@ -558,7 +769,7 @@ def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
         if timed_update:
             _fence(device)
             t0 = time.perf_counter()
-        grad_norm = optimizer.update(params, grads, state["opt_state"])
+        grad_norm = update(params, grads, state["opt_state"])
         if timed_update:
             _fence(device)
             step.last_update_ms = (time.perf_counter() - t0) * 1e3
@@ -572,13 +783,65 @@ def make_train_step(cfg, model, optimizer=None, loss_fn=None, device="cuda",
     return step
 
 
+def _mesh_update(optimizer, mesh, use_zero):
+    """optimizer.update for DTensor parameters, gradients and state on
+    `mesh`: the gradients summed over the data axes the parameters are not
+    split over, then the update on each rank's blocks; with ZeRO over the
+    data axis's blocks of each leaf, all-gathered back after."""
+    layouts = {}
+
+    @torch.no_grad()
+    def update(params, grads, opt_state):
+        if not layouts:  # from the live placements, once
+            base = _map(lambda p: Layout(mesh, spec_of(p, mesh), p.shape),
+                        params)
+            layouts["base"] = base
+            layouts["update"] = _zero_layouts(base, mesh) if use_zero \
+                else base
+        base, lays = layouts["base"], layouts["update"]
+        local_p = _map(_local, params)
+        local_g = _map(lambda g: _local(g).contiguous(), grads)
+        zero_axis = zero_update_axis(mesh) if use_zero else None
+        for (path, g), (_, lay) in zip(leaves(local_g), leaves(base)):
+            for axis in data_axes(mesh):
+                if mesh.shape[axis] > 1 and axis != zero_axis and \
+                        axis not in spec_axes(lay.spec):
+                    all_reduce(g, mesh.group(axis))
+        state = {k: v if k == "count" else _map(_local, v)
+                 for k, v in opt_state.items()}
+        if not use_zero:
+            norm = optimizer.update(local_p, local_g, state, layouts=lays)
+        else:
+            specs = _map(lambda lay: lay.spec, lays)
+            local_g = zero_constrain(local_g, mesh, specs, "reduce_scatter")
+            shards = zero_constrain(local_p, mesh, specs, "shard")
+            norm = optimizer.update(shards, local_g, state, layouts=lays)
+            for (path, shard), (_, spec), (_, whole) in zip(
+                    leaves(shards), leaves(specs), leaves(local_p)):
+                if shard is not whole:
+                    whole.copy_(zero_constrain(shard, mesh, spec,
+                                               "all_gather"))
+        opt_state["count"] = state["count"]
+        return norm
+
+    return update
+
+
 def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
                  generator=None, device="cuda", mesh=None, checkpoint=None,
-                 telemetry=None, timed_update=False):
+                 telemetry=None, timed_update=False, rules=None, zero=None):
     """One-stop builder: (state, train_step) sharing a SINGLE optimizer,
     with check_opt_state run on the built (or restored) state. Starts from
     `params` when given (see make_train_state); `mesh` goes to the step's
     loss_fn.
+
+    mesh: an spmd.Mesh trains on the mesh (make_train_state and
+    make_train_step): the state is DTensors placed by `rules` (default
+    rules_for_mesh), with ZeRO per `zero` (default the TPUFLOW_ZERO knob;
+    off on a mesh without a data axis). The JAX make_trainer returns the
+    shardings as a third value; here each leaf carries its own placements
+    (`state['params'][k].placements`, spmd/sharding.py spec_of), so the
+    port returns (state, step) on a mesh as off one.
 
     timed_update: the diagnostic split step reporting per-call
     `optimizer_update_ms` through telemetry (see make_train_step).
@@ -588,8 +851,9 @@ def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
     `train.step` record (+ tokens/sec and MFU when the kwargs below are
     given) through the run's flight recorder. Pass True for defaults or a
     dict of instrument_train_step kwargs, e.g.
-    ``telemetry={"tokens_per_step": batch * seq, "flops_per_step": ...}``;
-    the wrapper's TrainStepTelemetry is `step.telemetry`.
+    ``telemetry={"tokens_per_step": batch * seq, "flops_per_step": ...}``
+    (on a mesh: the global batch's tokens and flops); the wrapper's
+    TrainStepTelemetry is `step.telemetry`.
 
     checkpoint: an AsyncCheckpointManager (training/checkpoint.py). When it
     holds a complete checkpoint, the built state's tensors are overwritten
@@ -597,17 +861,19 @@ def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
     preempted run resumes instead of restarting; a checkpoint saved under
     another optimizer is refused with the optimizer named. The resumed step
     and the saved `extra` (e.g. the data stream's resume stamp) are then
-    `checkpoint.last_restored`."""
+    `checkpoint.last_restored`. On a mesh each rank reads the checkpoint
+    (which holds the whole tree) and keeps its blocks."""
     if knobs.get_bool("TPUFLOW_SANITIZE"):
         raise NotImplementedError(
             "TPUFLOW_SANITIZE is set, but the port has no collective "
             "sanitizer yet (ROADMAP.md, slice 5: the sanitizer)")
     optimizer = optimizer or default_optimizer()
     state = make_train_state(cfg, model, optimizer=optimizer, params=params,
-                             generator=generator, device=device)
+                             generator=generator, device=device, mesh=mesh,
+                             rules=rules, zero=zero)
     step = make_train_step(cfg, model, optimizer=optimizer, loss_fn=loss_fn,
                            device=device, mesh=mesh,
-                           timed_update=timed_update)
+                           timed_update=timed_update, zero=zero)
     if checkpoint is not None:
         restored = checkpoint.restore(like=state)
         if restored is not None:
@@ -624,7 +890,8 @@ def make_trainer(cfg, model, optimizer=None, loss_fn=None, params=None,
 def make_eval_step(cfg, model, loss_fn=None, device="cuda", mesh=None):
     """(params, batch) -> loss, without gradients; `mesh` goes to
     loss_fn."""
-    device = resolve_device(device)
+    device = _mesh_device(mesh, device) if isinstance(mesh, Mesh) \
+        else resolve_device(device)
     loss_fn = _with_mesh(loss_fn or model.loss_fn, mesh)
 
     @torch.no_grad()
@@ -632,3 +899,46 @@ def make_eval_step(cfg, model, loss_fn=None, device="cuda", mesh=None):
         return loss_fn(params, batch, cfg, device=device)
 
     return step
+
+
+def shard_batch(batch, mesh):
+    """Place a global host batch on the mesh: each array a DTensor whose
+    local block is this rank's rows (the batch dimension split over the
+    data axes, as batch_sharding says), on the mesh's device. Every rank
+    passes the same global batch; the rows of all ranks in rank order are
+    that batch."""
+    spec = batch_sharding(mesh)
+
+    def place(x):
+        x = torch.as_tensor(x)
+        layout = Layout(mesh, spec, x.shape)
+        return layout.dtensor(layout.local(x).to(mesh.device))
+
+    return {k: place(v) for k, v in batch.items()}
+
+
+def _mesh_of(t):
+    """The spmd.Mesh a DTensor lies on."""
+    dm = t.device_mesh
+    return Mesh(dict(zip(dm.mesh_dim_names, dm.shape)), dm,
+                t.to_local().device)
+
+
+def reshard_like(tree, like):
+    """Re-place a restored tree (whole tensors on the host, e.g. a
+    checkpoint's) onto the placements of a live state of the same tree: a
+    DTensor leaf of `like` gets this rank's block of the restored tensor
+    under like's placements, on like's device; a plain tensor leaf the
+    restored tensor on like's device; other leaves (counts, the step) the
+    restored value."""
+    if isinstance(like, dict):
+        return {k: reshard_like(tree[k], v) for k, v in like.items()}
+    if not isinstance(like, torch.Tensor):
+        return tree
+    restored = torch.as_tensor(tree)
+    if hasattr(like, "device_mesh"):
+        mesh = _mesh_of(like)
+        layout = Layout(mesh, spec_of(like, mesh), like.shape)
+        return layout.dtensor(layout.local(restored).to(
+            mesh.device, like.dtype))
+    return restored.to(like.device, like.dtype)

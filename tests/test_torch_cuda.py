@@ -791,3 +791,86 @@ def test_card_gang_reduces_cpu_and_cuda_tensors(tmp_path, monkeypatch):
             for r in range(ranks)]
     assert run["join_gpu"].task.data.outs == want
     assert run["join_plain"].task.data.outs == want
+
+
+MESH_STEPS = 3
+
+
+def _mesh_card_run(mesh_spec, zero=None, device="cuda"):
+    """bench_1b cut to 2 layers in f32, AdamW, MESH_STEPS steps on tokens
+    [8, 1025] from fixed seeds; on a mesh of `mesh_spec` (every rank of
+    the default group), or off any mesh for None. Returns (losses, the
+    whole parameters on the host)."""
+    from metaflow_tpu_torch import spmd, training
+    from metaflow_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.bench_1b(n_layers=2, dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1025),
+                           generator=torch.Generator().manual_seed(7))
+    mesh = None if mesh_spec is None else spmd.create_mesh(
+        spmd.MeshSpec(mesh_spec), device=device)
+    state, step = training.make_trainer(
+        cfg, llama, device=device, mesh=mesh, zero=zero,
+        optimizer=training.default_optimizer(warmup_steps=1,
+                                             total_steps=10),
+        generator=torch.Generator(device=device).manual_seed(3))
+    losses = []
+    for _ in range(MESH_STEPS):
+        state, m = step(state, {"tokens": tokens})
+        losses.append(m["loss"].item())
+    params = {"/".join(path): (p.full_tensor() if hasattr(p, "full_tensor")
+                               else p).detach().cpu()
+              for path, p in training.train_step.leaves(state["params"])}
+    return losses, params
+
+
+def _card_mesh_worker(rank, world, init, out):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=init,
+                            rank=rank, world_size=world)
+    try:
+        result = {"fsdp": _mesh_card_run({"fsdp": world}),
+                  "data_zero": _mesh_card_run({"data": world}, zero=True)}
+        if rank == 0:
+            torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_card_mesh_matches_one_card(tmp_path):
+    """bench_1b (2 layers, f32, AdamW) for three steps on a mesh of one
+    rank per card (up to 4), fsdp=N and data=N with ZeRO, against the same
+    steps on one card: losses within 1e-4 relative, each leaf's weights
+    within atol/rtol 1e-5 but for 1 in 1000 of them, every weight within
+    2 sum(lr) (tests/test_torch_mesh.py's f32 rule)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards or more: NCCL refuses two ranks on "
+                    "one card")
+    world = min(torch.cuda.device_count(), 4)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = str(tmp_path / "mesh.pt")
+    mp.spawn(_card_mesh_worker, nprocs=world, join=True,
+             args=(world, "tcp://127.0.0.1:%d" % port, out))
+    result = torch.load(out)
+    want_losses, want = _mesh_card_run(None)
+    from metaflow_tpu_torch import training
+
+    opt = training.default_optimizer(warmup_steps=1, total_steps=10)
+    bound = 2 * sum(opt.schedule(c) for c in range(MESH_STEPS))
+    for name, (losses, params) in result.items():
+        for got, ref in zip(losses, want_losses):
+            assert abs(got - ref) <= 1e-4 * abs(ref), (name, losses,
+                                                       want_losses)
+        for leaf, ref in want.items():
+            d = (params[leaf] - ref).abs()
+            off = d > 1e-5 + 1e-5 * ref.abs()
+            assert off.float().mean().item() <= 1e-3, (name, leaf)
+            assert d.max().item() <= bound, (name, leaf)

@@ -35,6 +35,8 @@ def test_import_leaves_jax_out():
             " metaflow_tpu_torch.models.mixtral,"
             " metaflow_tpu_torch.training.train_step,"
             " metaflow_tpu_torch.training.metrics,"
+            " metaflow_tpu_torch.spmd, metaflow_tpu_torch.training.data,"
+            " metaflow_tpu_torch.training.checkpoint,"
             " metaflow_tpu_torch.flowspec, metaflow_tpu_torch.runtime,"
             " metaflow_tpu_torch.task, metaflow_tpu_torch.cli,"
             " metaflow_tpu_torch.client, metaflow_tpu_torch.plugins,"
